@@ -6,15 +6,28 @@
 Phases, each raising on failure:
   1. environment: torch/CUDA versions, compute capability 9.x, the card's
      name and power limit from nvidia-smi;
-  2. build: the port's CUDA kernel from the sources in this checkout
-     (nvcc, sm_90a);
-  3. kernels vs plain: each kernel at the serving path's shapes against
-     its plain PyTorch version on the same inputs, with times for the
-     kernel, the plain version and one PyTorch library call, and the
-     least time the card could take (its bound);
-  4. model: Llama-3-8B at full width, 2 layers, forward() logits with the
+  2. build: the port's CUDA kernels from the sources in this checkout
+     (nvcc, sm_90a), each source timed, with ptxas's register and spill
+     report;
+  3. forward kernel vs plain: the attention forward at the serving and
+     training shapes against its plain PyTorch version on the same
+     inputs, with times for the kernel, the plain version and one
+     PyTorch library call, and the least time the card could take (its
+     bound);
+  4. backward kernels vs plain: dq and dk/dv at the training shape and
+     at suffix, ragged, fully-masked-row and f32 shapes against the
+     plain backward, with the same times (SDPA's backward as the
+     library call);
+  5. model: Llama-3-8B at full width, 2 layers, forward() logits with the
      kernel against the plain attention;
-  5. serve: LLMServer on Llama-3-8B (full width, 32 layers, random bf16
+  6. model grads: llama-654m at full width, 2 layers, bf16, the grads of
+     loss_fn with the kernels against the plain attention;
+  7. train: llama-654m (full width, 16 layers, f32 master weights, remat)
+     through init_state/make_train_step, 6 steps on one batch of 8 x 1024
+     tokens: the loss falls, and every step launches the forward kernel
+     twice per layer (forward and remat's recompute) and dq and dk/dv
+     once per layer;
+  8. serve: LLMServer on Llama-3-8B (full width, 32 layers, random bf16
      weights from a seed), a registered 64-token prefix, 16 concurrent
      requests of 100-1000 tokens, greedy and sampled, some extending the
      prefix; the kernel must have run in full and in suffix prefill.
@@ -24,8 +37,16 @@ status 2 and prints no result.
 
     python3 chip_smoke.py --profile DIR
 
-also profiles the serve phase (torch.profiler) and prints where its
-device time went by kernel class, and the device's idle share.
+also profiles one more train step and the serve phase (torch.profiler),
+prints where their device time went by kernel class and the device's
+idle share, and writes DIR/train_profile.txt and DIR/serve_profile.txt.
+
+    python3 chip_smoke.py --serve-ab PARENT
+
+runs only the serve phase, each time in a fresh process, in the checkout
+at PARENT (another commit of the port, unpacked with git archive) and in
+this one in turns, 3 rounds of 4 runs, and prints each run's serving
+metrics and each side's median and range.
 """
 
 from __future__ import annotations
@@ -59,9 +80,27 @@ LSE_ATOL = 1e-4        # lse is f32 from exact bf16 products in any case
 # average of v over the visible keys) is well below max|v| but in the
 # first rows. Held to one unit roundoff of the largest |v|.
 BF16_REL_V = 2.0 ** -8
-# Phase 4: bf16 logits may differ by a few bf16 ulps of the largest
+# Phase 4, bf16 backward against the plain backward run in f32 on the
+# same bf16 inputs (and the same O and lse). Each of dq, dk and dv
+# differs by (a) the rounding of the result to bf16, at most 2^-8 of its
+# largest element, and (b) the rounding of P (for dV) and dS (for dQ,
+# dK) to bf16 before the products, as the TPU kernels round them: each
+# term is off by at most 2^-8 relative, with independent signs over the
+# hundreds to thousands of terms of a sum, so the sum is off by far less
+# than 2^-8 of its terms' magnitudes; bounded here by another 2^-8 of
+# the largest element. f32 sums in another order are negligible beside
+# both. Held to 2^-7 of the largest |grad| of each output; f32 inputs
+# to 2e-5, as the forward.
+BWD_BF16_REL = 2.0 ** -7
+# Phase 5: bf16 logits may differ by a few bf16 ulps of the largest
 # logit (the residual stream differs by the attention's rounding).
 LOGITS_REL = 2.0 ** -5
+# Phase 6: per-leaf relative L2 error of bf16 grads, kernels against
+# plain attention. The two runs round differently inside attention
+# (forward and backward), and every later bf16 activation and grad
+# carries that difference at ~2^-8 relative; eight bf16 units of
+# roundoff bound the relative L2 difference of each leaf.
+GRAD_REL_L2 = 2.0 ** -5
 
 
 def log(*a):
@@ -89,12 +128,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def visible_pairs(Sq: int, Skv: int, causal: bool, q_offset: int) -> int:
+def visible_pairs(Sq: int, Skv: int, causal: bool, q_offset: int,
+                  kv_offset: int = 0) -> int:
     """(query, key) pairs the mask lets through: the work this input
     needs."""
     if not causal:
         return Sq * Skv
-    return sum(min(Skv, max(0, q_offset + i + 1)) for i in range(Sq))
+    return sum(min(Skv, max(0, q_offset - kv_offset + i + 1))
+               for i in range(Sq))
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take: the larger of operations over
+    the peak rate for their type and bytes over the memory rate."""
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 # ---------------------------------------------------------------------------
@@ -114,20 +164,26 @@ def phase_env() -> dict:
 
 
 def phase_build() -> None:
+    """Build each source in turn (one nvcc each; together they take
+    seconds against the script's time limit), with ptxas's report: the
+    kernel each line is about, its registers and its spills."""
     from ray_tpu_torch.ops import _build
-    from ray_tpu_torch.ops.flash_attention import SOURCE
+    from ray_tpu_torch.ops.flash_attention import BWD_SOURCE, SOURCE
 
-    t0 = time.perf_counter()
-    _build.load(SOURCE)
-    report = _build.build_log.get(SOURCE)
-    log(f"[build] {SOURCE} {'built' if report is not None else 'cached'} "
-        f"and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in (report or "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {SOURCE}: {line.strip()}")
+    for src in (SOURCE, BWD_SOURCE):
+        t0 = time.perf_counter()
+        _build.load(src)
+        report = _build.build_log.get(src)
+        log(f"[build] {src} {'built' if report is not None else 'cached'} "
+            f"and loaded in {time.perf_counter() - t0:.2f} s")
+        for line in (report or "").splitlines():
+            if "Compiling entry" in line:
+                log(f"[build] {src}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {src}:   {line.strip()}")
 
 
-def _sdpa(q, k, v, causal, q_offset):
+def _sdpa(q, k, v, causal, q_offset, kv_offset=0):
     """One PyTorch library call computing the same attention (timed as
     the yardstick only; the port never calls it)."""
     import torch.nn.functional as F
@@ -136,15 +192,25 @@ def _sdpa(q, k, v, causal, q_offset):
     if not causal:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                       enable_gqa=True)
-    if q_offset == 0 and q.shape[1] == k.shape[1]:
+    if q_offset == kv_offset and q.shape[1] == k.shape[1]:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
     qp = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
-    kp = torch.arange(k.shape[1], device=q.device)[None, :]
+    kp = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]
     mask = qp >= kp
     return lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                   attn_mask=mask,
                                                   enable_gqa=True)
+
+
+def _sdpa_bwd(q, k, v, do, causal, q_offset, kv_offset):
+    """The backward alone of that library call (the yardstick of the
+    backward kernels)."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = _sdpa(q, k, v, causal, q_offset, kv_offset)()
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (q, k, v), dot,
+                                       retain_graph=True)
 
 
 def phase_kernels() -> dict:
@@ -157,8 +223,10 @@ def phase_kernels() -> dict:
     # shapes — 8-row prefill tiles at the 512 and 1024 buckets (the serve
     # phase's prompts fall in both; 1024 is the largest it runs), suffix
     # tiles behind a 64-token prefix at the 128 and 1024 buckets, a
-    # ragged length, a prefix registration — and an f32 case.
+    # ragged length, a prefix registration —, the training path's shape
+    # (llama-654m, 8 x 1024 tokens) and an f32 case.
     cases = [
+        ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, 0),
         ("prefill", 8, 512, 512, 32, 8, 128, torch.bfloat16, 0),
         ("prefill_1024", 8, 1024, 1024, 32, 8, 128, torch.bfloat16, 0),
         ("suffix", 8, 128, 192, 32, 8, 128, torch.bfloat16, 64),
@@ -196,18 +264,243 @@ def phase_kernels() -> dict:
         flops = 4 * B * H * D * visible_pairs(Sq, Skv, True, qo)
         nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KVH * D) * es \
             + B * H * Sq * 4
-        t_ops = flops / PEAK_FLOPS[dt] * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
         row = {"shape": f"q({B},{Sq},{H},{D}) kv({B},{Skv},{KVH},{D}) "
                         f"{str(dt).split('.')[-1]} q_offset={qo}",
                "max_abs_err": err, "tol": tol, "lse_err": lse_err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               **bound(flops, nbytes, dt),
                "tflops": flops / (ms * 1e-3) / 1e12}
         rows[name] = row
         log(f"[kernels] {name}: " + json.dumps(row))
     return rows
+
+
+def phase_bwd_kernels() -> dict:
+    """dq and dk/dv against the plain backward (run in f32 on the same
+    inputs), with each kernel's time (CUDA events, warm, launched through
+    the wrapper's own launch helper, which counts nothing), the plain
+    backward's and SDPA's backward's, and each kernel's bound."""
+    from ray_tpu_torch.ops.flash_attention import (
+        _bwd_launch, _bwd_prepare, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_fwd)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    # (name, B, Sq, Skv, H, KVH, D, dtype, q_offset, kv_offset): the
+    # training shape (llama-654m, 8 x 1024 tokens, GQA 12/4), a GQA
+    # suffix behind 64 positions, a ragged length, rows that see no key
+    # (their grads must be finite: 0), and f32.
+    cases = [
+        ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, 0, 0),
+        ("suffix", 2, 512, 576, 12, 4, 128, torch.bfloat16, 64, 0),
+        ("ragged", 8, 100, 100, 12, 4, 128, torch.bfloat16, 0, 0),
+        ("masked_rows", 2, 512, 512, 12, 4, 128, torch.bfloat16, 0, 64),
+        ("f32", 4, 512, 512, 12, 4, 128, torch.float32, 0, 0),
+    ]
+    rows = {}
+    for name, B, Sq, Skv, H, KVH, D, dt, qo, ko in cases:
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+        q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, KVH, D), rnd(B, Skv, KVH, D)
+        do = rnd(B, Sq, H, D)
+        kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, do, out, lse, **kw)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_plain(
+            *(x.float() for x in (q, k, v, do, out)), lse, **kw)
+        errs, tols = {}, {}
+        for label, a, b in zip(("dq", "dk", "dv"), got, ref):
+            errs[label] = (a.float() - b).abs().max().item()
+            tols[label] = (F32_ATOL if dt == torch.float32
+                           else BWD_BF16_REL * b.abs().max().item())
+            if not (errs[label] <= tols[label]
+                    and torch.isfinite(a).all()):
+                raise RuntimeError(
+                    f"[bwd] {name}: max|d{label}| {errs[label]:.3e} (tol "
+                    f"{tols[label]:.3e}), finite "
+                    f"{bool(torch.isfinite(a).all())}")
+
+        # Each kernel alone, through the wrapper's own launch helper
+        # (the wrapper counts its launches; the helper does not).
+        args, _grads, _keep = _bwd_prepare(
+            q, k, v, do, out, lse, True, 1.0 / D ** 0.5, qo, ko)
+        iters = 20 if name == "train" else 50
+        dq_ms = cuda_ms(lambda: _bwd_launch("flash_attn_bwd_dq", args,
+                                            q.device), iters)
+        dkv_ms = cuda_ms(lambda: _bwd_launch("flash_attn_bwd_dkv", args,
+                                             q.device), iters)
+        bwd_ms = cuda_ms(lambda: flash_attention_bwd(
+            q, k, v, do, out, lse, **kw), iters)
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
+            q, k, v, do, out, lse, **kw), 5)
+        library_ms = cuda_ms(_sdpa_bwd(q, k, v, do, True, qo, ko), iters)
+        es = q.element_size()
+        pairs = B * H * visible_pairs(Sq, Skv, True, qo, ko)
+        q_bytes = B * Sq * H * D * es            # q, dO or dq
+        kv_bytes = B * Skv * KVH * D * es        # k, v, dk or dv
+        stat_bytes = 2 * B * H * Sq * 4          # lse and Delta
+        row = {"shape": f"q({B},{Sq},{H},{D}) kv({B},{Skv},{KVH},{D}) "
+                        f"{str(dt).split('.')[-1]} q_offset={qo} "
+                        f"kv_offset={ko}",
+               "err": errs, "tol": tols, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+               "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "dq": bound(6 * D * pairs,
+                           3 * q_bytes + 2 * kv_bytes + stat_bytes, dt),
+               "dkv": bound(8 * D * pairs,
+                            2 * q_bytes + 4 * kv_bytes + stat_bytes, dt)}
+        rows[name] = row
+        log(f"[bwd] {name}: " + json.dumps(row))
+        del args, _grads, _keep, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_model_grads() -> None:
+    """llama-654m at full width, 2 layers, bf16 compute over f32 master
+    weights, tokens (2, 512): per-leaf relative L2 error of loss_fn's
+    grads with the kernels against the plain attention."""
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+    from ray_tpu_torch.ops.flash_attention import dkv_launches, dq_launches
+    from ray_tpu_torch.train.step import _leaves, _rebuild
+
+    cfg = dataclasses.replace(configs.llama_654m(), n_layers=2)
+    params = init_params(cfg, 2, device="cuda", master_weights=True)
+    toks = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, size=(2, 513))).cuda()
+    tokens, targets = toks[:, :-1], toks[:, 1:]
+
+    def grads(c):
+        live = [p.detach().requires_grad_() for p in _leaves(params)]
+        before = (dq_launches.count, dkv_launches.count)
+        loss, _ = loss_fn(c, _rebuild(params, live), tokens, targets)
+        gs = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize()
+        ran = (dq_launches.count - before[0], dkv_launches.count - before[1])
+        return loss.item(), gs, ran
+
+    k_loss, k_grads, k_ran = grads(cfg)
+    p_loss, p_grads, p_ran = grads(dataclasses.replace(
+        cfg, attn_impl="reference"))
+    rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+           for a, b in zip(k_grads, p_grads)]
+    finite = all(bool(torch.isfinite(g).all()) for g in k_grads)
+    log(f"[grads] llama-654m width, 2 layers, bf16, tokens (2, 512): loss "
+        f"{k_loss:.6f} (plain {p_loss:.6f}); per-leaf relative L2 error "
+        f"max {max(rel):.3e} median {sorted(rel)[len(rel) // 2]:.3e} (tol "
+        f"{GRAD_REL_L2:.3e}); launches dq/dkv {k_ran} (plain {p_ran})")
+    if not (finite and max(rel) <= GRAD_REL_L2 and k_ran == (2, 2)
+            and p_ran == (0, 0)):
+        raise RuntimeError("[grads] kernel and plain attention disagree")
+    del params, k_grads, p_grads
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, B: int, S: int) -> dict:
+    """FLOPs of one train step. Model FLOPs (what MFU counts): 6 per
+    matmul weight per token (forward 2, backward 4) plus attention's 12*D
+    per visible (query, key) pair and head (forward QK^T and PV, backward
+    dS K, dS^T Q, dO V^T and P^T dO). Hardware FLOPs add remat's second
+    forward of every layer and the backward kernels' recompute of
+    QK^T."""
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.n_layers
+    layer_w = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+               + 3 * d * cfg.d_ff)
+    head_w = d * cfg.vocab_size
+    T = B * S
+    pairs = B * cfg.n_heads * visible_pairs(S, S, True, 0) * L
+    model = 6 * (L * layer_w + head_w) * T + 12 * hd * pairs
+    hardware = (8 * L * layer_w + 6 * head_w) * T + 22 * hd * pairs
+    return {"model": model, "hardware": hardware}
+
+
+def phase_train(profile_dir: str = "") -> dict:
+    """llama-654m, 16 layers, through init_state / make_train_step: 6
+    steps on one batch of 8 x 1024 seeded random tokens. The schedule's
+    lr is 0 at step 0, so the loss must fall from step 1 to step 5."""
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.ops.flash_attention import (
+        dkv_launches, dq_launches, fwd_launches)
+    from ray_tpu_torch.train import init_state, make_optimizer, \
+        make_train_step
+
+    cfg = configs.llama_654m()
+    B, S, steps = 8, 1024, 6
+    opt = make_optimizer(lr=3e-4, warmup_steps=2, total_steps=100)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, opt, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    targets = torch.roll(tokens, -1, 1)
+    train_step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    log(f"[train] llama-654m ({cfg.num_params() / 1e6:.0f}M params, "
+        f"{cfg.n_layers} layers) state up in {time.perf_counter() - t0:.1f}"
+        f" s ({torch.cuda.memory_allocated() / 2**30:.1f} GiB)")
+
+    counters = (fwd_launches, dq_launches, dkv_launches)
+    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    for c in counters:                    # main path starts here
+        c.reset()
+    per_step, times, metrics = [], [], []
+    for _ in range(steps):
+        before = [c.count for c in counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, tokens, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        per_step.append([c.count - b for c, b in zip(counters, before)])
+        metrics.append(m)
+    launches = {c.name: c.count for c in counters}   # main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in metrics]
+    gnorms = [m["grad_norm"].item() for m in metrics]
+    step_s = float(np.median(times[2:]))
+    flops = train_flops(cfg, B, S)
+    summary = {
+        "losses": losses, "grad_norms": gnorms, "step_s": times,
+        "step_s_median_2_5": step_s, "tokens_per_s": B * S / step_s,
+        "model_tflop_per_step": flops["model"] / 1e12,
+        "hardware_tflop_per_step": flops["hardware"] / 1e12,
+        "mfu": flops["model"] / step_s / PEAK_FLOPS[torch.bfloat16],
+        "hfu": flops["hardware"] / step_s / PEAK_FLOPS[torch.bfloat16],
+        "peak_mem_gib": peak / 2**30, "launches": launches,
+        "launches_per_step": per_step}
+    log("[train] " + json.dumps(summary))
+    if not all(np.isfinite(losses + gnorms)):
+        raise RuntimeError("[train] a loss or grad norm is not finite")
+    if not losses[-1] < losses[1]:
+        raise RuntimeError(f"[train] loss did not fall: {losses}")
+    if any(n != want for n in per_step):
+        raise RuntimeError(f"[train] launches per step {per_step}, want "
+                           f"{want} (fwd, dq, dkv)")
+    if profile_dir:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof:
+            state, _ = train_step(state, tokens, targets)
+            torch.cuda.synchronize()
+        report = report_profile(prof, time.perf_counter() - t0, profile_dir,
+                                "train")
+        by = report["device_ms_by_class"]
+        bwd_ms = by.get("flash_attn_bwd_dq", 0) + by.get(
+            "flash_attn_bwd_dkv", 0)
+        log(f"[train] backward kernels: {bwd_ms:.2f} ms of one profiled "
+            f"step, {bwd_ms / (step_s * 1e3):.3f} of the unprofiled median "
+            f"step, {bwd_ms / (report['device_busy_s'] * 1e3):.3f} of its "
+            f"device busy time")
+    del state, tokens, targets, metrics
+    torch.cuda.empty_cache()
+    return summary
 
 
 def phase_model() -> None:
@@ -235,11 +528,11 @@ def phase_model() -> None:
     torch.cuda.empty_cache()
 
 
-def report_profile(prof, wall_s: float, out_dir: str) -> None:
-    """Where the serve phase's device time went: kernel time by kernel
+def report_profile(prof, wall_s: float, out_dir: str, name: str) -> dict:
+    """Where a profiled phase's device time went: kernel time by kernel
     class and the top kernels, and the share of the (profiled, so
     longer) wall time with no kernel running. The full table goes to
-    out_dir/serve_profile.txt."""
+    out_dir/<name>_profile.txt."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -249,6 +542,10 @@ def report_profile(prof, wall_s: float, out_dir: str) -> None:
         n = e.name
         low = n.lower()
         cls = ("flash_attn_fwd" if "fwd_bf16_mma" in n or "fwd_f32_fma" in n
+               else "flash_attn_bwd_dq" if "dq_bf16_mma" in n
+               or "dq_f32_fma" in n
+               else "flash_attn_bwd_dkv" if "dkv_bf16_mma" in n
+               or "dkv_f32_fma" in n
                else "memcpy/memset" if "memcpy" in low or "memset" in low
                else "gemm/gemv" if any(t in low for t in (
                    "gemm", "gemv", "nvjet", "cutlass", "xmma"))
@@ -270,12 +567,13 @@ def report_profile(prof, wall_s: float, out_dir: str) -> None:
         "device_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
         "top_kernels": [{"name": n[:90], "count": c, "ms": us / 1e3}
                         for n, (c, us) in top]}
-    log("[profile] " + json.dumps(report))
+    log(f"[profile] {name} " + json.dumps(report))
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "serve_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
         f.write(json.dumps(report, indent=1) + "\n\n")
         f.write(prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=60))
+    return report
 
 
 def phase_serve(counter, profile_dir: str = "") -> dict:
@@ -348,7 +646,7 @@ def phase_serve(counter, profile_dir: str = "") -> dict:
     wall = time.perf_counter() - t0
     launches = counter.count              # main path ends here
     if profile_dir:
-        report_profile(prof, wall, profile_dir)
+        report_profile(prof, wall, profile_dir, "serve")
     stats = server.stats()
     server.stop()
 
@@ -386,6 +684,53 @@ def phase_serve(counter, profile_dir: str = "") -> dict:
     return summary
 
 
+# The serve phase alone in a fresh process of one checkout: the names it
+# uses are the same in every slice of the port.
+_SERVE_ONLY = """
+import json, chip_smoke
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops.flash_attention import SOURCE, fwd_launches
+_build.load(SOURCE)
+print("SERVE " + json.dumps(chip_smoke.phase_serve(fwd_launches)))
+"""
+
+
+def serve_ab(parent: str) -> None:
+    """The serve phase in the checkout at `parent` and in this one, in
+    turns (parent, this, this, parent, three rounds), each run in a fresh
+    process on the same card: each run's metrics, then the median and
+    range of each side."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for _ in range(3):
+        for side, cwd in (("parent", parent), ("change", here),
+                          ("change", here), ("parent", parent)):
+            out = subprocess.run([sys.executable, "-c", _SERVE_ONLY],
+                                 cwd=cwd, capture_output=True, text=True,
+                                 timeout=600, check=True).stdout
+            s = json.loads(next(line for line in out.splitlines()
+                                if line.startswith("SERVE "))[6:])
+            span, calls = s["device_span_s_by_path"], s["calls_by_path"]
+            run = {"wall_s": s["wall_s"], "ttft_p50_s": s["ttft_p50_s"],
+                   "decode_tok_s_per_request_p50":
+                       s["decode_tok_s_per_request_p50"],
+                   "output_tok_s": s["output_tok_s"],
+                   "decode_ms_per_tick":
+                       1e3 * span["decode"] / calls["decode"],
+                   "decode_ticks": calls["decode"],
+                   "first_token_span_s": span["first_token"],
+                   "prefill_span_s": span["full_prefill"]
+                   + span["suffix_prefill"],
+                   "kernel_launches": s["kernel_launches"]}
+            runs[side].append(run)
+            log(f"[serve-ab] {side} " + json.dumps(run))
+    for side, rs in runs.items():
+        log(f"[serve-ab] {side} median and range over {len(rs)} runs: "
+            + json.dumps({k: [float(np.median([r[k] for r in rs])),
+                              min(r[k] for r in rs), max(r[k] for r in rs)]
+                          for k in rs[0]}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -395,25 +740,56 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default="",
-                    help="profile the serve phase with torch.profiler and "
-                         "write its breakdown to DIR/serve_profile.txt")
-    profile_dir = ap.parse_args().profile
+                    help="profile one train step and the serve phase with "
+                         "torch.profiler and write their breakdowns to "
+                         "DIR/train_profile.txt and DIR/serve_profile.txt")
+    ap.add_argument("--serve-ab", metavar="PARENT", default="",
+                    help="run only the serve phase, in the checkout at "
+                         "PARENT and in this one in turns, and compare")
+    args = ap.parse_args()
+    profile_dir = args.profile
     t_start = time.perf_counter()
     env = phase_env()
+    if args.serve_ab:
+        serve_ab(args.serve_ab)
+        log(f"[done] {time.perf_counter() - t_start:.1f} s")
+        log(env["card"])
+        return 0
     phase_build()
     rows = phase_kernels()
+    bwd = phase_bwd_kernels()
     phase_model()
+    phase_model_grads()
+    train = phase_train(profile_dir)
     serve = phase_serve(fwd_launches, profile_dir)
-    main_row = rows["prefill_1024"]       # the largest bucket served
-    kernels = {"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_attn_fwd.cu",
-        "replaces": "ray_tpu/ops/flash_attention.py:55",
-        "launches": serve["kernel_launches"],
-        "max_abs_err": main_row["max_abs_err"], "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}
+    fwd = rows["prefill_1024"]            # the largest bucket served
+    tb = bwd["train"]                     # the training shape
+    src = "ray_tpu_torch/ops/csrc/"
+    ref = "ray_tpu/ops/flash_attention.py:"
+    # Each path's launches were counted from 0 just before it ran: the
+    # serve phase's for the forward, the train phase's for all three.
+    fwd_by_path = {"serve": serve["kernel_launches"],
+                   "train": train["launches"]["flash_attn_fwd"]}
+    kernels = {"kernels": [
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": src + "flash_attn_fwd.cu", "replaces": ref + "55",
+         "launches": sum(fwd_by_path.values()),
+         "launches_by_path": fwd_by_path,
+         "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
+         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
+         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"]},
+        {"name": "flash_attn_bwd_dq", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu", "replaces": ref + "168",
+         "launches": train["launches"]["flash_attn_bwd_dq"],
+         "max_abs_err": tb["err"]["dq"], "ms": tb["dq_ms"],
+         "plain_ms": tb["plain_ms"], **tb["dq"],
+         "library_ms": tb["library_ms"]},
+        {"name": "flash_attn_bwd_dkv", "route": "cuda",
+         "source": src + "flash_attn_bwd.cu", "replaces": ref + "219",
+         "launches": train["launches"]["flash_attn_bwd_dkv"],
+         "max_abs_err": max(tb["err"]["dk"], tb["err"]["dv"]),
+         "ms": tb["dkv_ms"], "plain_ms": tb["plain_ms"], **tb["dkv"],
+         "library_ms": tb["library_ms"]}]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(env["card"])
     print(json.dumps(kernels), flush=True)

@@ -5,7 +5,8 @@ The JAX package's params are a nested dict: ``embed`` (V, D),
 stacked on a leading L axis, ``final_norm`` (D,), and ``lm_head`` (D, V)
 when untied. The port keeps that layout and the ``x @ W`` orientation, so
 the mapping is leaf for leaf with no transpose; only the storage dtype
-changes (see models/transformer.py).
+changes (see models/transformer.py): the serving storage by default, every
+leaf in ``param_dtype`` with ``master_weights=True`` (training).
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ def _leaf(a: Any, shape, dtype: torch.dtype, device: torch.device,
 
 
 def params_from_numpy(cfg: TransformerConfig, tree: Mapping[str, Any], *,
-                      device: DeviceLike = "cuda") -> Params:
+                      device: DeviceLike = "cuda",
+                      master_weights: bool = False) -> Params:
     """The JAX package's params (nested dict of numpy arrays, or anything
-    np.asarray takes) -> the port's parameter dictionary on `device`."""
+    np.asarray takes) -> the port's parameter dictionary on `device`.
+    `master_weights` stores every leaf in cfg.param_dtype (training)."""
     require_dense(cfg)
     dev = resolve_device(device)
     shapes = param_shapes(cfg)
@@ -48,10 +51,12 @@ def params_from_numpy(cfg: TransformerConfig, tree: Mapping[str, Any], *,
         if key == "layers":
             layers = tree["layers"]
             out["layers"] = {
-                name: _leaf(layers[name], s, storage_dtype(cfg, name), dev,
+                name: _leaf(layers[name], s,
+                            storage_dtype(cfg, name, master_weights), dev,
                             f"layers/{name}")
                 for name, s in shape.items()}
         else:
-            out[key] = _leaf(tree[key], shape, storage_dtype(cfg, key), dev,
+            out[key] = _leaf(tree[key], shape,
+                             storage_dtype(cfg, key, master_weights), dev,
                              key)
     return out

@@ -3,6 +3,8 @@ neither jax nor anything of the JAX package (ray_tpu), its entry points
 run on CUDA unless asked for the CPU, and importing it builds nothing."""
 
 import ast
+import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -132,11 +134,36 @@ def test_chip_smoke_refuses_to_run_without_cuda():
 
 
 def test_kernel_wrapper_has_no_fallback_path():
-    """No try/except in the kernel wrapper or the build: a build or
-    launch failure on a CUDA tensor propagates, it is never caught and
-    answered with the plain version."""
+    """No try/except in the kernel wrappers (forward and backward) or the
+    build: a build or launch failure on a CUDA tensor propagates, it is
+    never caught and answered with the plain version. The autograd
+    backward goes to flash_attention_bwd, whose CUDA branch is the kernel
+    wrapper alone, and no port module calls a library attention."""
     for rel in ("ops/flash_attention.py", "ops/_build.py"):
         with open(os.path.join(PKG, rel)) as f:
             tree = ast.parse(f.read())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{rel} has try blocks at lines {tries}"
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    def calls(fn):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        return {getattr(n.func, "attr", getattr(n.func, "id", None))
+                for n in ast.walk(tree) if isinstance(n, ast.Call)}
+
+    assert "flash_attention_bwd" in calls(fa._FlashAttention.backward)
+    assert "flash_attention_bwd_plain" not in calls(
+        fa._FlashAttention.backward)
+    bwd = ast.parse(textwrap.dedent(inspect.getsource(
+        fa.flash_attention_bwd)))
+    cuda_branch = next(n for n in ast.walk(bwd) if isinstance(n, ast.If)
+                       and "is_cuda" in ast.unparse(n.test))
+    assert [ast.unparse(s) for s in cuda_branch.body] == [
+        "return _bwd_cuda(q, k, v, do, out, lse, causal, sm_scale, "
+        "q_offset, kv_offset)"]
+    for path in port_sources():
+        if path.endswith("chip_smoke.py"):  # times SDPA as a yardstick
+            continue
+        with open(path) as f:
+            src = f.read()
+        assert "scaled_dot_product_attention" not in src, path
