@@ -10,14 +10,15 @@ Phases, each raising on failure:
      (nvcc, sm_90a), each source timed, with ptxas's register and spill
      report;
   3. forward kernel vs plain: the attention forward at the serving and
-     training shapes against its plain PyTorch version on the same
-     inputs, with times for the kernel, the plain version and one
-     PyTorch library call, and the least time the card could take (its
-     bound);
+     training shapes, at D 64, non-causal and ragged, and with rows that
+     see no key (exactly 0), against its plain PyTorch version on the
+     same inputs, with the kernel and one PyTorch library call (SDPA)
+     timed in turns (median and range of each), the plain version's
+     time, and the least time the card could take (its bound);
   4. backward kernels vs plain: dq and dk/dv at the training shape and
      at suffix, ragged, fully-masked-row and f32 shapes against the
-     plain backward, with the same times (SDPA's backward as the
-     library call);
+     plain backward, with each kernel's time, the pair's against SDPA's
+     backward in turns, and the plain backward's;
   5. model: Llama-3-8B at full width, 2 layers, forward() logits with the
      kernel against the plain attention;
   6. model grads: llama-654m at full width, 2 layers, bf16, the grads of
@@ -42,11 +43,12 @@ prints where their device time went by kernel class and the device's
 idle share, and writes DIR/train_profile.txt and DIR/serve_profile.txt.
 
     python3 chip_smoke.py --serve-ab PARENT
+    python3 chip_smoke.py --train-ab PARENT
 
-runs only the serve phase, each time in a fresh process, in the checkout
-at PARENT (another commit of the port, unpacked with git archive) and in
-this one in turns, 3 rounds of 4 runs, and prints each run's serving
-metrics and each side's median and range.
+run only the serve (or train) phase, each time in a fresh process, in
+the checkout at PARENT (another commit of the port, unpacked with git
+archive) and in this one in turns, 3 rounds of 4 runs, and print each
+run's serving (or training) metrics and each side's median and range.
 """
 
 from __future__ import annotations
@@ -128,6 +130,22 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def in_turns(kernel, library, iters: int, rounds: int = 3) -> dict:
+    """A kernel and its library call timed in turns in this process:
+    kernel, library, library, kernel for `rounds` rounds, each turn one
+    cuda_ms of `iters` launches. -> each side's median and range, and
+    the ratio of the medians (kernel / library)."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(cuda_ms(kernel, iters))
+        ls.append(cuda_ms(library, iters))
+        ls.append(cuda_ms(library, iters))
+        ks.append(cuda_ms(kernel, iters))
+    ms, lib = float(np.median(ks)), float(np.median(ls))
+    return {"ms": ms, "ms_range": [min(ks), max(ks)], "library_ms": lib,
+            "library_ms_range": [min(ls), max(ls)], "ratio": ms / lib}
+
+
 def visible_pairs(Sq: int, Skv: int, causal: bool, q_offset: int,
                   kv_offset: int = 0) -> int:
     """(query, key) pairs the mask lets through: the work this input
@@ -164,22 +182,30 @@ def phase_env() -> dict:
 
 
 def phase_build() -> None:
-    """Build each source in turn (one nvcc each; together they take
-    seconds against the script's time limit), with ptxas's report: the
-    kernel each line is about, its registers and its spills."""
+    """Build every source at once (one nvcc each, started together), each
+    timed, with ptxas's report: the kernel each line is about, its
+    registers, shared memory and spills, and any warning (a wgmma
+    pipeline that ptxas serialised shows here)."""
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops.flash_attention import BWD_SOURCE, SOURCE
 
-    for src in (SOURCE, BWD_SOURCE):
+    def build(src):
         t0 = time.perf_counter()
         _build.load(src)
+        return time.perf_counter() - t0
+
+    srcs = (SOURCE, BWD_SOURCE)
+    with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+        took = list(pool.map(build, srcs))
+    for src, s in zip(srcs, took):
         report = _build.build_log.get(src)
         log(f"[build] {src} {'built' if report is not None else 'cached'} "
-            f"and loaded in {time.perf_counter() - t0:.2f} s")
+            f"and loaded in {s:.2f} s")
         for line in (report or "").splitlines():
             if "Compiling entry" in line:
                 log(f"[build] {src}: {line.split(chr(39))[1]}")
-            elif "registers" in line or "spill" in line:
+            elif any(w in line for w in ("registers", "spill", "smem",
+                                         "arning", "Potential")):
                 log(f"[build] {src}:   {line.strip()}")
 
 
@@ -213,65 +239,100 @@ def _sdpa_bwd(q, k, v, do, causal, q_offset, kv_offset):
                                        retain_graph=True)
 
 
+# Phase 3's cases: (name, B, Sq, Skv, H, KVH, D, dtype, causal, q_offset,
+# kv_offset). The serving path's shapes: 8-row prefill tiles at the 512
+# and 1024 buckets (the serve phase's prompts fall in both; 1024 is the
+# largest it runs), suffix tiles behind a 64-token prefix at the 128 and
+# 1024 buckets, a ragged length, a prefix registration. The training
+# path's shape (llama-654m, 8 x 1024 tokens). gpt2_125m's head size (D
+# 64, MHA), a non-causal ragged ViT-B/16 token count (197), rows that
+# see no key (kv_offset 64: the first 64 rows must give exactly 0), the
+# training shape with q, k and v cut by head out of one fused
+# (B, S, H + 2 KVH, D) projection (strided views read in place), and
+# f32.
+FWD_CASES = [
+    ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, True, 0, 0),
+    ("fused_qkv", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, True, 0, 0),
+    ("prefill", 8, 512, 512, 32, 8, 128, torch.bfloat16, True, 0, 0),
+    ("prefill_1024", 8, 1024, 1024, 32, 8, 128, torch.bfloat16, True, 0, 0),
+    ("suffix", 8, 128, 192, 32, 8, 128, torch.bfloat16, True, 64, 0),
+    ("suffix_1024", 8, 1024, 1088, 32, 8, 128, torch.bfloat16, True, 64, 0),
+    ("ragged", 8, 100, 100, 32, 8, 128, torch.bfloat16, True, 0, 0),
+    ("prefix_reg", 1, 64, 64, 32, 8, 128, torch.bfloat16, True, 0, 0),
+    ("d64", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0, 0),
+    ("noncausal_197", 8, 197, 197, 12, 12, 64, torch.bfloat16, False, 0, 0),
+    ("masked_rows", 2, 128, 128, 12, 4, 128, torch.bfloat16, True, 0, 64),
+    ("f32", 8, 512, 512, 32, 8, 128, torch.float32, True, 0, 0),
+]
+
+
 def phase_kernels() -> dict:
+    """The forward kernel against its plain version (run in f32 on the
+    same inputs) in every case of FWD_CASES, with the kernel and SDPA
+    timed in turns, the plain version's time, and the bound."""
     from ray_tpu_torch.ops.flash_attention import (
-        flash_attention_fwd, flash_attention_plain)
+        _aligned, flash_attention_fwd, flash_attention_plain)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    # (name, B, Sq, Skv, H, KVH, D, dtype, q_offset): the serving path's
-    # shapes — 8-row prefill tiles at the 512 and 1024 buckets (the serve
-    # phase's prompts fall in both; 1024 is the largest it runs), suffix
-    # tiles behind a 64-token prefix at the 128 and 1024 buckets, a
-    # ragged length, a prefix registration —, the training path's shape
-    # (llama-654m, 8 x 1024 tokens) and an f32 case.
-    cases = [
-        ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, 0),
-        ("prefill", 8, 512, 512, 32, 8, 128, torch.bfloat16, 0),
-        ("prefill_1024", 8, 1024, 1024, 32, 8, 128, torch.bfloat16, 0),
-        ("suffix", 8, 128, 192, 32, 8, 128, torch.bfloat16, 64),
-        ("suffix_1024", 8, 1024, 1088, 32, 8, 128, torch.bfloat16, 64),
-        ("ragged", 8, 100, 100, 32, 8, 128, torch.bfloat16, 0),
-        ("prefix_reg", 1, 64, 64, 32, 8, 128, torch.bfloat16, 0),
-        ("f32", 8, 512, 512, 32, 8, 128, torch.float32, 0),
-    ]
     rows = {}
-    for name, B, Sq, Skv, H, KVH, D, dt, qo in cases:
+    for name, B, Sq, Skv, H, KVH, D, dt, causal, qo, ko in FWD_CASES:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-        q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, KVH, D), rnd(B, Skv, KVH, D)
-        out, lse = flash_attention_fwd(q, k, v, causal=True, q_offset=qo)
+        if name == "fused_qkv":
+            qkv = rnd(B, Sq, H + 2 * KVH, D)
+            q, k, v = (qkv[:, :, :H], qkv[:, :, H:H + KVH],
+                       qkv[:, :, H + KVH:])
+            if not all(_aligned(x) and not x.is_contiguous()
+                       for x in (q, k, v)):
+                raise RuntimeError("[kernels] fused_qkv: views not taken "
+                                   "in place")
+        else:
+            q, k, v = (rnd(B, Sq, H, D), rnd(B, Skv, KVH, D),
+                       rnd(B, Skv, KVH, D))
+        kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         ref, ref_lse = flash_attention_plain(q.float(), k.float(),
-                                             v.float(), causal=True,
-                                             q_offset=qo)
+                                             v.float(), **kw)
         err = (out.float() - ref).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
         tol = (F32_ATOL if dt == torch.float32
                else BF16_REL_V * v.float().abs().max().item())
-        if not (err <= tol and lse_err <= LSE_ATOL
+        # Rows that see no key: every output exactly 0.
+        blind = max(0, min(Sq, ko - qo)) if causal else 0
+        blind_zero = bool((out[:, :blind] == 0).all())
+        if not (err <= tol and lse_err <= LSE_ATOL and blind_zero
                 and torch.isfinite(out).all()):
             raise RuntimeError(f"[kernels] {name}: max|dO| {err:.3e} (tol "
                                f"{tol:.3e}), max|dlse| {lse_err:.3e} (tol "
-                               f"{LSE_ATOL:.0e})")
-        ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, causal=True,
-                                                 q_offset=qo), 50)
-        plain_ms = cuda_ms(lambda: flash_attention_plain(
-            q, k, v, causal=True, q_offset=qo), 10)
-        library_ms = cuda_ms(_sdpa(q, k, v, True, qo), 50)
+                               f"{LSE_ATOL:.0e}), {blind} blind rows all 0 "
+                               f"{blind_zero}, finite "
+                               f"{bool(torch.isfinite(out).all())}")
+        row = {"shape": f"q({B},{Sq},{H},{D}) kv({B},{Skv},{KVH},{D}) "
+                        f"{str(dt).split('.')[-1]} causal={causal} "
+                        f"q_offset={qo} kv_offset={ko}",
+               "max_abs_err": err, "tol": tol, "lse_err": lse_err,
+               "blind_rows": blind}
+
+        def kernel():
+            flash_attention_fwd(q, k, v, **kw)
+
+        # SDPA gives NaN on rows that see no key: no yardstick there.
+        turns = (in_turns(kernel, _sdpa(q, k, v, causal, qo, ko), 20)
+                 if blind == 0 else
+                 {"ms": cuda_ms(kernel, 50), "library_ms": None})
+        plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, **kw), 10)
         es = q.element_size()
-        flops = 4 * B * H * D * visible_pairs(Sq, Skv, True, qo)
+        flops = 4 * B * H * D * visible_pairs(Sq, Skv, causal, qo, ko)
         nbytes = (2 * B * Sq * H * D + 2 * B * Skv * KVH * D) * es \
             + B * H * Sq * 4
-        row = {"shape": f"q({B},{Sq},{H},{D}) kv({B},{Skv},{KVH},{D}) "
-                        f"{str(dt).split('.')[-1]} q_offset={qo}",
-               "max_abs_err": err, "tol": tol, "lse_err": lse_err,
-               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               **bound(flops, nbytes, dt),
-               "tflops": flops / (ms * 1e-3) / 1e12}
+        row.update(turns, plain_ms=plain_ms, **bound(flops, nbytes, dt),
+                   tflops=flops / (turns["ms"] * 1e-3) / 1e12)
         rows[name] = row
         log(f"[kernels] {name}: " + json.dumps(row))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -335,7 +396,13 @@ def phase_bwd_kernels() -> dict:
             q, k, v, do, out, lse, **kw), iters)
         plain_ms = cuda_ms(lambda: flash_attention_bwd_plain(
             q, k, v, do, out, lse, **kw), 5)
-        library_ms = cuda_ms(_sdpa_bwd(q, k, v, do, True, qo, ko), iters)
+
+        def pair():
+            _bwd_launch("flash_attn_bwd_dq", args, q.device)
+            _bwd_launch("flash_attn_bwd_dkv", args, q.device)
+
+        # dq and dk/dv together against SDPA's backward, in turns.
+        turns = in_turns(pair, _sdpa_bwd(q, k, v, do, True, qo, ko), iters)
         es = q.element_size()
         pairs = B * H * visible_pairs(Sq, Skv, True, qo, ko)
         q_bytes = B * Sq * H * D * es            # q, dO or dq
@@ -346,7 +413,9 @@ def phase_bwd_kernels() -> dict:
                         f"kv_offset={ko}",
                "err": errs, "tol": tols, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
                "bwd_ms": bwd_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms,
+               "pair_ms": turns["ms"], "pair_ms_range": turns["ms_range"],
+               "library_ms": turns["library_ms"],
+               "library_ms_range": turns["library_ms_range"],
                "dq": bound(6 * D * pairs,
                            3 * q_bytes + 2 * kv_bytes + stat_bytes, dt),
                "dkv": bound(8 * D * pairs,
@@ -492,12 +561,14 @@ def phase_train(profile_dir: str = "") -> dict:
         report = report_profile(prof, time.perf_counter() - t0, profile_dir,
                                 "train")
         by = report["device_ms_by_class"]
-        bwd_ms = by.get("flash_attn_bwd_dq", 0) + by.get(
-            "flash_attn_bwd_dkv", 0)
-        log(f"[train] backward kernels: {bwd_ms:.2f} ms of one profiled "
-            f"step, {bwd_ms / (step_s * 1e3):.3f} of the unprofiled median "
-            f"step, {bwd_ms / (report['device_busy_s'] * 1e3):.3f} of its "
-            f"device busy time")
+        attn = {k: by.get(k, 0.0) for k in (
+            "flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+        total = sum(attn.values())
+        log(f"[train] attention kernels: {json.dumps(attn)} ms, together "
+            f"{total:.2f} ms of one profiled step, "
+            f"{total / (step_s * 1e3):.3f} of the unprofiled median step, "
+            f"{total / (report['device_busy_s'] * 1e3):.3f} of its device "
+            f"busy time")
     del state, tokens, targets, metrics
     torch.cuda.empty_cache()
     return summary
@@ -541,7 +612,7 @@ def report_profile(prof, wall_s: float, out_dir: str, name: str) -> dict:
     for e in kernels:
         n = e.name
         low = n.lower()
-        cls = ("flash_attn_fwd" if "fwd_bf16_mma" in n or "fwd_f32_fma" in n
+        cls = ("flash_attn_fwd" if "fwd_bf16" in n or "fwd_f32_fma" in n
                else "flash_attn_bwd_dq" if "dq_bf16_mma" in n
                or "dq_f32_fma" in n
                else "flash_attn_bwd_dkv" if "dkv_bf16_mma" in n
@@ -684,48 +755,64 @@ def phase_serve(counter, profile_dir: str = "") -> dict:
     return summary
 
 
-# The serve phase alone in a fresh process of one checkout: the names it
-# uses are the same in every slice of the port.
-_SERVE_ONLY = """
+# One phase alone in a fresh process of one checkout, printing its summary
+# after a tag: the names these use are the same in every slice of the
+# port.
+_PHASE_ONLY = {
+    "serve": """
 import json, chip_smoke
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.ops.flash_attention import SOURCE, fwd_launches
 _build.load(SOURCE)
-print("SERVE " + json.dumps(chip_smoke.phase_serve(fwd_launches)))
-"""
+print("RESULT " + json.dumps(chip_smoke.phase_serve(fwd_launches)))
+""",
+    "train": """
+import json, chip_smoke
+print("RESULT " + json.dumps(chip_smoke.phase_train()))
+""",
+}
 
 
-def serve_ab(parent: str) -> None:
-    """The serve phase in the checkout at `parent` and in this one, in
-    turns (parent, this, this, parent, three rounds), each run in a fresh
-    process on the same card: each run's metrics, then the median and
-    range of each side."""
+def _serve_metrics(s: dict) -> dict:
+    span, calls = s["device_span_s_by_path"], s["calls_by_path"]
+    return {"wall_s": s["wall_s"], "ttft_p50_s": s["ttft_p50_s"],
+            "decode_tok_s_per_request_p50":
+                s["decode_tok_s_per_request_p50"],
+            "output_tok_s": s["output_tok_s"],
+            "decode_ms_per_tick": 1e3 * span["decode"] / calls["decode"],
+            "decode_ticks": calls["decode"],
+            "first_token_span_s": span["first_token"],
+            "prefill_span_s": span["full_prefill"] + span["suffix_prefill"],
+            "kernel_launches": s["kernel_launches"]}
+
+
+def _train_metrics(s: dict) -> dict:
+    return {"step_ms_median_2_5": 1e3 * s["step_s_median_2_5"],
+            "tokens_per_s": s["tokens_per_s"], "mfu": s["mfu"],
+            "peak_mem_gib": s["peak_mem_gib"], "final_loss": s["losses"][-1]}
+
+
+def phase_ab(phase: str, parent: str) -> None:
+    """One phase ("serve" or "train") in the checkout at `parent` and in
+    this one, in turns (parent, this, this, parent, three rounds), each
+    run in a fresh process on the same card: each run's metrics, then the
+    median and range of each side."""
+    metrics = {"serve": _serve_metrics, "train": _train_metrics}[phase]
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
     for _ in range(3):
         for side, cwd in (("parent", parent), ("change", here),
                           ("change", here), ("parent", parent)):
-            out = subprocess.run([sys.executable, "-c", _SERVE_ONLY],
+            out = subprocess.run([sys.executable, "-c", _PHASE_ONLY[phase]],
                                  cwd=cwd, capture_output=True, text=True,
                                  timeout=600, check=True).stdout
-            s = json.loads(next(line for line in out.splitlines()
-                                if line.startswith("SERVE "))[6:])
-            span, calls = s["device_span_s_by_path"], s["calls_by_path"]
-            run = {"wall_s": s["wall_s"], "ttft_p50_s": s["ttft_p50_s"],
-                   "decode_tok_s_per_request_p50":
-                       s["decode_tok_s_per_request_p50"],
-                   "output_tok_s": s["output_tok_s"],
-                   "decode_ms_per_tick":
-                       1e3 * span["decode"] / calls["decode"],
-                   "decode_ticks": calls["decode"],
-                   "first_token_span_s": span["first_token"],
-                   "prefill_span_s": span["full_prefill"]
-                   + span["suffix_prefill"],
-                   "kernel_launches": s["kernel_launches"]}
+            run = metrics(json.loads(next(
+                line for line in out.splitlines()
+                if line.startswith("RESULT "))[7:]))
             runs[side].append(run)
-            log(f"[serve-ab] {side} " + json.dumps(run))
+            log(f"[{phase}-ab] {side} " + json.dumps(run))
     for side, rs in runs.items():
-        log(f"[serve-ab] {side} median and range over {len(rs)} runs: "
+        log(f"[{phase}-ab] {side} median and range over {len(rs)} runs: "
             + json.dumps({k: [float(np.median([r[k] for r in rs])),
                               min(r[k] for r in rs), max(r[k] for r in rs)]
                           for k in rs[0]}))
@@ -743,15 +830,18 @@ def main() -> int:
                     help="profile one train step and the serve phase with "
                          "torch.profiler and write their breakdowns to "
                          "DIR/train_profile.txt and DIR/serve_profile.txt")
-    ap.add_argument("--serve-ab", metavar="PARENT", default="",
-                    help="run only the serve phase, in the checkout at "
-                         "PARENT and in this one in turns, and compare")
+    for phase in ("serve", "train"):
+        ap.add_argument(f"--{phase}-ab", metavar="PARENT", default="",
+                        help=f"run only the {phase} phase, in the checkout "
+                             "at PARENT and in this one in turns, and "
+                             "compare")
     args = ap.parse_args()
     profile_dir = args.profile
     t_start = time.perf_counter()
     env = phase_env()
-    if args.serve_ab:
-        serve_ab(args.serve_ab)
+    if args.serve_ab or args.train_ab:
+        phase = "serve" if args.serve_ab else "train"
+        phase_ab(phase, args.serve_ab or args.train_ab)
         log(f"[done] {time.perf_counter() - t_start:.1f} s")
         log(env["card"])
         return 0
@@ -776,20 +866,27 @@ def main() -> int:
          "launches": sum(fwd_by_path.values()),
          "launches_by_path": fwd_by_path,
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
-         "plain_ms": fwd["plain_ms"], "bound_ms": fwd["bound_ms"],
-         "bound_by": fwd["bound_by"], "library_ms": fwd["library_ms"]},
+         "ms_range": fwd["ms_range"], "plain_ms": fwd["plain_ms"],
+         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+         "library_ms": fwd["library_ms"],
+         "library_ms_range": fwd["library_ms_range"],
+         "train_shape": {k: rows["train"][k] for k in (
+             "ms", "ms_range", "library_ms", "library_ms_range",
+             "bound_ms", "tflops")}},
         {"name": "flash_attn_bwd_dq", "route": "cuda",
          "source": src + "flash_attn_bwd.cu", "replaces": ref + "168",
          "launches": train["launches"]["flash_attn_bwd_dq"],
          "max_abs_err": tb["err"]["dq"], "ms": tb["dq_ms"],
          "plain_ms": tb["plain_ms"], **tb["dq"],
-         "library_ms": tb["library_ms"]},
+         "library_ms": tb["library_ms"],
+         "library_ms_range": tb["library_ms_range"]},
         {"name": "flash_attn_bwd_dkv", "route": "cuda",
          "source": src + "flash_attn_bwd.cu", "replaces": ref + "219",
          "launches": train["launches"]["flash_attn_bwd_dkv"],
          "max_abs_err": max(tb["err"]["dk"], tb["err"]["dv"]),
          "ms": tb["dkv_ms"], "plain_ms": tb["plain_ms"], **tb["dkv"],
-         "library_ms": tb["library_ms"]}]}
+         "library_ms": tb["library_ms"],
+         "library_ms_range": tb["library_ms_range"]}]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(env["card"])
     print(json.dumps(kernels), flush=True)

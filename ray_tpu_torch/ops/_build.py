@@ -2,10 +2,11 @@
 
 Each source under ``csrc/`` compiles on its own into a shared library with
 a plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes). The library's file name carries a hash of its source and the
-compiler flags, so an edited source rebuilds and an unchanged one is
-reused. Libraries land in ``ray_tpu_torch/_build/`` (listed in
-``.gitignore``).
+minutes). The library's file name carries a hash of its source, of every
+header (``*.cuh``) beside it and of the compiler flags, so an edited
+source or header rebuilds and an unchanged tree is reused. Libraries land
+in ``ray_tpu_torch/_build/`` (listed in ``.gitignore``). Different sources
+may build at the same time, from different threads.
 
 Nothing here runs at import time: ``load()`` builds at the first launch.
 """
@@ -27,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_source_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # source -> nvcc/ptxas report of builds done by this process.
 build_log: Dict[str, str] = {}
@@ -47,8 +49,11 @@ def find_nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source] + headers:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR,
                         f"lib{stem}_{digest.hexdigest()[:16]}.so")
@@ -72,6 +77,8 @@ def _compile(source: str, out: str) -> None:
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of `source`, built first if it is missing."""
     with _lock:
+        lock = _source_locks.setdefault(source, threading.Lock())
+    with lock:
         if source not in _libs:
             out = _lib_path(source)
             if not os.path.exists(out):

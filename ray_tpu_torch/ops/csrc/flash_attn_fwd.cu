@@ -5,8 +5,8 @@
 // function: online-softmax attention with a running row max m, row sum l
 // and an f32 output accumulator; the causal mask is on global positions,
 // (q_offset + i) >= (kv_offset + j); kv tiles wholly above the diagonal
-// are skipped; masked probabilities are exactly 0, l is clamped at 1e-30,
-// and lse = m + log(l).
+// are skipped; masked probabilities are exactly 0 (a row that sees no key
+// gives 0), l is clamped at 1e-30, and lse = m + log(l), in natural log.
 //
 // What bounds it on this card. The work is 4*B*H*Sq*Skv*D FLOPs, about
 // halved by the causal mask, against bytes (q, k, v read once, o and lse
@@ -18,27 +18,37 @@
 // more and more bound by operations.
 //
 // What the design does about that:
-//   * bf16 (the serving path): products on the tensor cores with
-//     mma.sync m16n8k16 (f32 accumulate). One block of 4 warps owns a
-//     64-row query tile of one (batch, head); each warp owns 16 rows. A
-//     loop over 64-row kv tiles replaces the TPU's sequential grid axis.
-//     Q, K and V (transposed) are staged in shared memory; the scores,
-//     m, l and the output accumulator stay in registers, and the score
-//     fragments are re-packed in registers as the A operand of P*V, so
-//     the score matrix never leaves the SM.
-//   * f32 (the exact comparison): the same tiling on the CUDA cores with
-//     f32 FMAs (32 query rows, 4 threads a row), so f32 results are not
-//     rounded to TF32.
+//   * bf16 (serving and training): a warp-specialised block of three
+//     warpgroups per (128-row query tile, head, batch). One thread of the
+//     producer warpgroup issues TMA loads: Q once, then K and V tiles of
+//     128 rows into a 2-stage ring in shared memory, each stage with full
+//     barriers for K and V and an empty barrier the consumers release;
+//     the producer gives its registers to the consumers (setmaxnreg).
+//     Each of the two consumer warpgroups owns 64 query rows and runs
+//     S = Q K^T as wgmma with both operands in shared memory (K in its
+//     natural [kv][D] layout is the K-major B operand), the online
+//     softmax in registers with exp2 and sm_scale*log2(e) folded into one
+//     multiply, then O += P V as wgmma with P repacked from the score
+//     accumulator into bf16 register A operands and V read MN-major
+//     through the transpose bit (no transposed copy of V). Only tiles
+//     that straddle the diagonal or the ragged kv edge evaluate the mask.
+//     Query tiles run heaviest first (causal) to trim the tail.
+//   * f32 (the exact comparison): a 32-row query tile on the CUDA cores
+//     with f32 FMAs (4 threads a row), so f32 results are not rounded to
+//     TF32.
 //   * GQA without a repeat: the block reads KV head h / (H / KVH).
-//   * Strided (B, S, H, D) operands are read in place: no transpose.
-//   * Ragged Sq/Skv: out-of-range rows load as zeros, are masked out of
-//     the softmax, and are never stored.
-// This is the simple first kernel; wgmma, TMA and a pipelined smem ring
-// are later work.
+//   * Strided (B, S, H, D) operands are read in place: the bf16 tensor
+//     maps carry the tensors' own strides, the f32 loads index them.
+//   * Ragged Sq/Skv: out-of-range rows load as zeros (TMA fills them),
+//     are masked out of the softmax, and are never stored.
+// The Hopper building blocks (mbarriers, TMA, wgmma descriptors, the
+// accumulator-to-A repack) are in hopper.cuh.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -74,180 +84,233 @@ __device__ __forceinline__ int kv_limit(const Params& p, int q_end) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16: warp-specialised, TMA + wgmma
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// Shared-memory plan of the bf16 kernel (byte offsets from a 1024-byte-
+// aligned base): Q, then the K ring, then the V ring, then the barriers.
+template <int D>
+struct Plan {
+  static constexpr int BQ = 128, BK = 128, STAGES = 2;
+  static constexpr int TILE = 128 * 128;  // bytes of 128 rows x 64 bf16
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;
+  static constexpr int SMEM = BAR_OFF + 8 * N_BARS + 1024;  // + alignment
+};
 
 template <int D>
-__global__ void __launch_bounds__(128)
-fwd_bf16_mma(Params p) {
-  constexpr int BQ = 64, BK = 64, PAD = 8;
-  constexpr int QS = D + PAD;   // row stride of Qs / Ks (elements)
-  constexpr int VS = BK + PAD;  // row stride of Vt (elements)
-  constexpr int NT = BK / 8;    // score n-tiles per warp
-  constexpr int DT = D / 8;     // output n-tiles per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][QS]
-  __nv_bfloat16* Ks = Qs + BQ * QS;                            // [BK][QS]
-  __nv_bfloat16* Vt = Ks + BK * QS;                            // [D][VS]
+__global__ void __launch_bounds__(384, 1)
+fwd_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, Params p) {
+  using P = Plan<D>;
+  constexpr int BQ = P::BQ, BK = P::BK, S = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + S;
+  uint64_t* empty = bars + 1 + 2 * S;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
   const int kvh = h / (p.H / p.KVH);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
-                            b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) +
-                            b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) +
-                            b * p.v_sb + kvh * p.v_sh;
-
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < BQ * CH; c += 128) {
-    int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + r < p.Sq)
-      val = *reinterpret_cast<const uint4*>(qg + (q0 + r) * p.q_ss + col);
-    *reinterpret_cast<uint4*>(Qs + r * QS + col) = val;
-  }
-
-  float o[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int row0 = warp * 16 + g;  // this thread's rows: row0, row0 + 8
   const int q_end = min(q0 + BQ, p.Sq);
   const int kv_end = kv_limit(p, q_end);
+  const int n_kv = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
 
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and Q stored)
-    for (int c = tid; c < BK * CH; c += 128) {
-      int r = c / CH, col = (c % CH) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + r < p.Skv) {
-        kv = *reinterpret_cast<const uint4*>(kg + (k0 + r) * p.k_ss + col);
-        vv = *reinterpret_cast<const uint4*>(vg + (k0 + r) * p.v_ss + col);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * QS + col) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(col + i) * VS + r] = ve[i];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x BK columns.
-    float s[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = Qs + row0 * QS + kk + t4 * 2;
-      uint32_t a[4] = {ld32(qa), ld32(qa + 8 * QS), ld32(qa + 8),
-                       ld32(qa + 8 * QS + 8)};
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* kb = Ks + (nt * 8 + g) * QS + kk + t4 * 2;
-        mma_bf16(s[nt], a, ld32(kb), ld32(kb + 8));
-      }
-    }
-
-    // Online softmax over the tile; element e of n-tile nt sits at row
-    // row0 + 8*(e>>1), column k0 + nt*8 + t4*2 + (e&1).
-    float mt[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int qi = q0 + row0 + 8 * (e >> 1);
-        int kj = k0 + nt * 8 + t4 * 2 + (e & 1);
-        float x = visible(p, qi, kj) ? s[nt][e] * p.scale : kNegInf;
-        s[nt][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
-      }
-    float alpha[2], ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      float mn = fmaxf(m[r], mt[r]);
-      alpha[r] = expf(m[r] - mn);
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int qi = q0 + row0 + 8 * (e >> 1);
-        int kj = k0 + nt * 8 + t4 * 2 + (e & 1);
-        float pe = visible(p, qi, kj) ? expf(s[nt][e] - m[e >> 1]) : 0.f;
-        s[nt][e] = pe;
-        ls[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 1);
-      ls[r] += __shfl_xor_sync(0xffffffffu, ls[r], 2);
-      l[r] = alpha[r] * l[r] + ls[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      o[i][0] *= alpha[0];
-      o[i][1] *= alpha[0];
-      o[i][2] *= alpha[1];
-      o[i][3] *= alpha[1];
-    }
-
-    // O += P V, with P (rounded to bf16, as the TPU kernel casts p to
-    // v's dtype) taken straight from the score registers.
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      uint32_t a[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]),
-                       pack_bf16(s[2 * c][2], s[2 * c][3]),
-                       pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                       pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-      for (int nd = 0; nd < DT; ++nd) {
-        const __nv_bfloat16* vb = Vt + (nd * 8 + g) * VS + c * 16 + t4 * 2;
-        mma_bf16(o[nd], a, ld32(vb), ld32(vb + 8));
-      }
-    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
-                      h * p.o_sh;
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::prefetch_tmap(&q_map);
+      hopper::prefetch_tmap(&k_map);
+      hopper::prefetch_tmap(&v_map);
+      hopper::mbar_expect_tx(q_full, P::Q_BYTES);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int qi = q0 + row0 + 8 * r;
-    if (qi >= p.Sq) continue;
-    float lr = fmaxf(l[r], 1e-30f);
-    float inv = 1.f / lr;
-    __nv_bfloat16* orow = og + qi * p.o_ss;
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(smem + c * P::TILE, &q_map, q_full, c * 64, q0,
+                            h, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % S;
+        if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+        uint8_t* ks = smem + P::K_OFF + s * P::KV_BYTES;
+        uint8_t* vs = smem + P::V_OFF + s * P::KV_BYTES;
+        hopper::mbar_expect_tx(&k_full[s], P::KV_BYTES);
 #pragma unroll
-    for (int nd = 0; nd < DT; ++nd) {
-      __nv_bfloat162 v2 = __floats2bfloat162_rn(o[nd][2 * r] * inv,
-                                                o[nd][2 * r + 1] * inv);
-      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + t4 * 2) = v2;
+        for (int c = 0; c < D / 64; ++c)
+          hopper::tma_load_4d(ks + c * P::TILE, &k_map, &k_full[s], c * 64,
+                              it * BK, kvh, b);
+        hopper::mbar_expect_tx(&v_full[s], P::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          hopper::tma_load_4d(vs + c * P::TILE, &v_map, &v_full[s], c * 64,
+                              it * BK, kvh, b);
+      }
     }
-    if (t4 == 0)
-      p.lse[((long long)b * p.H + h) * p.Sq + qi] = m[r] + logf(lr);
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    hopper::regs_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int q_first = q0 + cw * 64;   // first row of this warpgroup
+    const int row0 = q_first + warp * 16 + g;  // rows row0 and row0 + 8
+    const uint32_t q_base = hopper::smem_u32(smem) + cw * 64 * 128;
+    const float sl2 = p.scale * kLog2e;
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // Running max (in units of scale * log2(e)) and this thread's part of
+    // the row sum (its quad holds the rest).
+    float m2[2] = {kNegInf, kNegInf}, lsum[2] = {0.f, 0.f};
+
+    hopper::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int s = it % S;
+      const uint32_t par = (it / S) & 1;
+      const int k0 = it * BK;
+      const uint32_t k_base =
+          hopper::smem_u32(smem + P::K_OFF + s * P::KV_BYTES);
+      const uint32_t v_base =
+          hopper::smem_u32(smem + P::V_OFF + s * P::KV_BYTES);
+
+      // S = Q K^T: 64 x BK, depth D in steps of 16.
+      float sc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      hopper::mbar_wait(&k_full[s], par);
+      hopper::fence_regs<BK / 2>(sc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * P::TILE + (kk % 4) * 32;
+        hopper::wgmma_m64n128k16_ss(sc, hopper::desc_sw128(q_base + off, 16,
+                                                           1024),
+                                    hopper::desc_sw128(k_base + off, 16,
+                                                       1024),
+                                    kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<BK / 2>(sc);
+
+      // Mask only where the tile straddles the diagonal or the kv edge.
+      // Element e of 8-column slice n sits at row row0 + 8 * (e / 2),
+      // column k0 + 8 * n + 2 * t4 + e % 2.
+      const bool edge = k0 + BK > p.Skv;
+      const bool diag =
+          p.causal && p.q_off + q_first < p.kv_off + k0 + BK - 1;
+      if (edge || diag) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int qi = row0 + 8 * ((i / 2) % 2);
+          const int kj = k0 + 8 * (i / 4) + 2 * t4 + i % 2;
+          if (!visible(p, qi, kj)) sc[i] = kNegInf;
+        }
+      }
+
+      // Online softmax. mu is the max the exponents subtract: 0 while a
+      // row has seen no key, so masked scores give exp2(-huge) = 0 and
+      // never exp2(0) = 1; nothing is ever -inf.
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float mn = mx[r] == kNegInf ? m2[r]
+                                          : fmaxf(m2[r], mx[r] * sl2);
+        mu[r] = mn == kNegInf ? 0.f : mn;
+        alpha[r] = hopper::exp2_approx(m2[r] - mu[r]);
+        m2[r] = mn;
+      }
+      float ls[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] = hopper::exp2_approx(fmaf(sc[i], sl2, -mu[r]));
+        ls[r] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) lsum[r] = alpha[r] * lsum[r] + ls[r];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+
+      // O += P V, P rounded to bf16 (as the TPU kernel casts p to v's
+      // dtype), straight from the score registers; V is [kv][D], the
+      // MN-major B operand: one product D wide a depth step, its 64-wide
+      // column tiles P::TILE bytes apart.
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) hopper::acc_to_a(sc, kk, pa[kk]);
+      hopper::mbar_wait(&v_full[s], par);
+      hopper::fence_regs<D / 2>(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t dv =
+            hopper::desc_sw128(v_base + kk * 16 * 128, P::TILE, 1024);
+        if constexpr (D == 128)
+          hopper::wgmma_m64n128k16_rs_tb(o, pa[kk], dv, 1);
+        else
+          hopper::wgmma_m64n64k16_rs_tb(o, pa[kk], dv, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs<D / 2>(o);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    // Epilogue: O / l in bf16, lse = (m2 + log2 l) * ln 2.
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                        h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
+      lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      if (qi >= p.Sq) continue;
+      const float lr = fmaxf(lsum[r], 1e-30f);
+      const float inv = 1.f / lr;
+      __nv_bfloat16* orow = og + qi * p.o_ss;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t4) =
+            __floats2bfloat162_rn(o[4 * n + 2 * r] * inv,
+                                  o[4 * n + 2 * r + 1] * inv);
+      if (t4 == 0)
+        p.lse[((long long)b * p.H + h) * p.Sq + qi] =
+            m2[r] == kNegInf ? kNegInf : (m2[r] + log2f(lr)) * kLn2;
+    }
   }
 }
 
@@ -357,11 +420,36 @@ cudaError_t launch(Kernel kernel, int bq, int smem, int B, const Params& p,
   return cudaGetLastError();
 }
 
+// The bf16 kernel: tensor maps over q, k and v as they lie in memory, one
+// block per (head, batch, query tile).
+template <int D>
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  using P = Plan<D>;
+  CUtensorMap qm, km, vm;
+  // A kv length of 0 still needs a valid map; no tile of it is loaded.
+  const int skv = p.Skv > 0 ? p.Skv : 1;
+  if (hopper::encode_bshd(&qm, p.q, B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh,
+                          P::BQ) ||
+      hopper::encode_bshd(&km, p.k, B, skv, p.KVH, D, p.k_sb, p.k_ss, p.k_sh,
+                          P::BK) ||
+      hopper::encode_bshd(&vm, p.v, B, skv, p.KVH, D, p.v_sb, p.v_ss, p.v_sh,
+                          P::BK))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_bf16_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid(p.H, B, (p.Sq + P::BQ - 1) / P::BQ);
+  fwd_bf16_wgmma<D><<<grid, 384, P::SMEM, stream>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements; the last
-// (head-dim) stride is 1. Returns a cudaError_t (0 on success), or -1
-// for a dtype / head size the kernel does not take.
+// (head-dim) stride is 1; for bf16 the base pointers are 16-byte aligned
+// and the other strides multiples of 8. Returns a cudaError_t (0 on
+// success), -1 for a dtype / head size the kernel does not take, or -2
+// for bf16 operands the driver cannot describe as tensor maps.
 extern "C" int flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse,
     int dtype, int B, int H, int KVH, int Sq, int Skv, int D,
@@ -376,12 +464,8 @@ extern "C" int flash_attn_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B == 0 || Sq == 0) return 0;
   if (dtype == 1) {
-    if (D == 128)
-      return launch(fwd_bf16_mma<128>, 64,
-                    (64 * 136 * 2 + 128 * 72) * 2, B, p, s);
-    if (D == 64)
-      return launch(fwd_bf16_mma<64>, 64, (64 * 72 * 2 + 64 * 72) * 2, B,
-                    p, s);
+    if (D == 128) return launch_bf16<128>(p, B, s);
+    if (D == 64) return launch_bf16<64>(p, B, s);
   } else if (dtype == 0) {
     if (D == 128)
       return launch(fwd_f32_fma<128>, 32,

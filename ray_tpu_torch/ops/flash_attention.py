@@ -105,6 +105,13 @@ def _aligned(x: torch.Tensor) -> bool:
             and all(st % elems == 0 for st in x.stride()[:-1]))
 
 
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """`x` itself when the kernels can read it in place, else a copy in a
+    fresh (aligned) allocation: `contiguous()` would hand back a
+    contiguous tensor whose base is misaligned unchanged."""
+    return x if _aligned(x) else x.clone(memory_format=torch.contiguous_format)
+
+
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures: pointers, ints (dtype code and sizes), strides, then
 # (scale, q_offset, kv_offset, causal, stream).
@@ -154,7 +161,7 @@ def _fwd_cuda(q, k, v, causal, sm_scale, q_offset, kv_offset):
     _check("flash_attn_fwd", q, k, v)
     B, Sq, H, D = q.shape
     _, Skv, KVH, _ = k.shape
-    q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
+    q, k, v = (_kernel_layout(x) for x in (q, k, v))
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     fn = _entry(SOURCE, "flash_attn_fwd")
@@ -248,8 +255,7 @@ def _bwd_prepare(q, k, v, do, out, lse, causal, sm_scale, q_offset,
     if lse.dtype != torch.float32 or lse.shape != (B, H, Sq):
         raise ValueError(f"lse must be float32 (B, H, Sq) = {(B, H, Sq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    q, k, v, do = (x if _aligned(x) else x.contiguous()
-                   for x in (q, k, v, do))
+    q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do))
     lse = lse.contiguous()
     delta = _delta(do, out).contiguous()
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
