@@ -16,9 +16,11 @@ Phases, each raising on failure:
      timed in turns (median and range of each), the plain version's
      time, and the least time the card could take (its bound);
   4. backward kernels vs plain: dq and dk/dv at the training shape and
-     at suffix, ragged, fully-masked-row and f32 shapes against the
-     plain backward, with each kernel's time, the pair's against SDPA's
-     backward in turns, and the plain backward's;
+     at suffix, ragged, fully-masked-row, D 64, non-causal and f32
+     shapes against the plain backward (blind rows' grads exactly 0, two
+     launches bit-identical at the training shape), with each kernel's
+     time, the pair's against SDPA's backward in turns, and the plain
+     backward's;
   5. model: Llama-3-8B at full width, 2 layers, forward() logits with the
      kernel against the plain attention;
   6. model grads: llama-654m at full width, 2 layers, bf16, the grads of
@@ -340,53 +342,82 @@ def phase_bwd_kernels() -> dict:
     """dq and dk/dv against the plain backward (run in f32 on the same
     inputs), with each kernel's time (CUDA events, warm, launched through
     the wrapper's own launch helper, which counts nothing), the plain
-    backward's and SDPA's backward's, and each kernel's bound."""
+    backward's and SDPA's backward's, and each kernel's bound. Rows that
+    see no key, and kv rows that no query sees, must get grads of exactly
+    0; at the training shape two launches of the pair must give
+    bit-identical grads."""
     from ray_tpu_torch.ops.flash_attention import (
         _bwd_launch, _bwd_prepare, flash_attention_bwd,
         flash_attention_bwd_plain, flash_attention_fwd)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    # (name, B, Sq, Skv, H, KVH, D, dtype, q_offset, kv_offset): the
-    # training shape (llama-654m, 8 x 1024 tokens, GQA 12/4), a GQA
+    # (name, B, Sq, Skv, H, KVH, D, dtype, causal, q_offset, kv_offset):
+    # the training shape (llama-654m, 8 x 1024 tokens, GQA 12/4), a GQA
     # suffix behind 64 positions, a ragged length, rows that see no key
-    # (their grads must be finite: 0), and f32.
+    # (their grads must be finite: 0), gpt2_125m's head size (D 64, MHA),
+    # a non-causal ragged ViT-B/16 token count (197), and f32.
     cases = [
-        ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, 0, 0),
-        ("suffix", 2, 512, 576, 12, 4, 128, torch.bfloat16, 64, 0),
-        ("ragged", 8, 100, 100, 12, 4, 128, torch.bfloat16, 0, 0),
-        ("masked_rows", 2, 512, 512, 12, 4, 128, torch.bfloat16, 0, 64),
-        ("f32", 4, 512, 512, 12, 4, 128, torch.float32, 0, 0),
+        ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, True, 0, 0),
+        ("suffix", 2, 512, 576, 12, 4, 128, torch.bfloat16, True, 64, 0),
+        ("ragged", 8, 100, 100, 12, 4, 128, torch.bfloat16, True, 0, 0),
+        ("masked_rows", 2, 512, 512, 12, 4, 128, torch.bfloat16, True, 0,
+         64),
+        ("d64", 8, 1024, 1024, 12, 12, 64, torch.bfloat16, True, 0, 0),
+        ("noncausal_197", 8, 197, 197, 12, 12, 64, torch.bfloat16, False, 0,
+         0),
+        ("f32", 4, 512, 512, 12, 4, 128, torch.float32, True, 0, 0),
     ]
     rows = {}
-    for name, B, Sq, Skv, H, KVH, D, dt, qo, ko in cases:
+    for name, B, Sq, Skv, H, KVH, D, dt, causal, qo, ko in cases:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
         q, k, v = rnd(B, Sq, H, D), rnd(B, Skv, KVH, D), rnd(B, Skv, KVH, D)
         do = rnd(B, Sq, H, D)
-        kw = dict(causal=True, q_offset=qo, kv_offset=ko)
+        kw = dict(causal=causal, q_offset=qo, kv_offset=ko)
         out, lse = flash_attention_fwd(q, k, v, **kw)
         got = flash_attention_bwd(q, k, v, do, out, lse, **kw)
         torch.cuda.synchronize()
         ref = flash_attention_bwd_plain(
             *(x.float() for x in (q, k, v, do, out)), lse, **kw)
+        # Query rows that see no key, and kv rows that no query sees.
+        blind_q = max(0, min(Sq, ko - qo)) if causal else 0
+        blind_kv = max(0, Skv - max(0, qo + Sq - ko)) if causal else 0
+        blind_zero = bool((got[0][:, :blind_q] == 0).all()
+                          and (got[1][:, Skv - blind_kv:] == 0).all()
+                          and (got[2][:, Skv - blind_kv:] == 0).all())
         errs, tols = {}, {}
         for label, a, b in zip(("dq", "dk", "dv"), got, ref):
             errs[label] = (a.float() - b).abs().max().item()
             tols[label] = (F32_ATOL if dt == torch.float32
                            else BWD_BF16_REL * b.abs().max().item())
-            if not (errs[label] <= tols[label]
+            if not (errs[label] <= tols[label] and blind_zero
                     and torch.isfinite(a).all()):
                 raise RuntimeError(
                     f"[bwd] {name}: max|d{label}| {errs[label]:.3e} (tol "
-                    f"{tols[label]:.3e}), finite "
+                    f"{tols[label]:.3e}), {blind_q} blind q rows and "
+                    f"{blind_kv} blind kv rows all 0 {blind_zero}, finite "
                     f"{bool(torch.isfinite(a).all())}")
+        row = {"shape": f"q({B},{Sq},{H},{D}) kv({B},{Skv},{KVH},{D}) "
+                        f"{str(dt).split('.')[-1]} causal={causal} "
+                        f"q_offset={qo} kv_offset={ko}",
+               "err": errs, "tol": tols, "blind_rows": [blind_q, blind_kv]}
+        if name == "train":
+            again = flash_attention_bwd(q, k, v, do, out, lse, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise RuntimeError("[bwd] train: two launches of the pair "
+                                   "gave different grads")
+            row["bit_identical"] = True
+            del again
 
         # Each kernel alone, through the wrapper's own launch helper
-        # (the wrapper counts its launches; the helper does not).
+        # (the wrapper counts its launches; the helper does not). dk/dv
+        # reads the Delta that dq writes into the buffer of these
+        # arguments, so it is timed after dq's launches, never alone.
         args, _grads, _keep = _bwd_prepare(
-            q, k, v, do, out, lse, True, 1.0 / D ** 0.5, qo, ko)
+            q, k, v, do, out, lse, causal, 1.0 / D ** 0.5, qo, ko)
         iters = 20 if name == "train" else 50
         dq_ms = cuda_ms(lambda: _bwd_launch("flash_attn_bwd_dq", args,
                                             q.device), iters)
@@ -402,24 +433,25 @@ def phase_bwd_kernels() -> dict:
             _bwd_launch("flash_attn_bwd_dkv", args, q.device)
 
         # dq and dk/dv together against SDPA's backward, in turns.
-        turns = in_turns(pair, _sdpa_bwd(q, k, v, do, True, qo, ko), iters)
+        turns = in_turns(pair, _sdpa_bwd(q, k, v, do, causal, qo, ko),
+                         iters)
         es = q.element_size()
-        pairs = B * H * visible_pairs(Sq, Skv, True, qo, ko)
-        q_bytes = B * Sq * H * D * es            # q, dO or dq
+        pairs = B * H * visible_pairs(Sq, Skv, causal, qo, ko)
+        q_bytes = B * Sq * H * D * es            # q, dO, O or dq
         kv_bytes = B * Skv * KVH * D * es        # k, v, dk or dv
         stat_bytes = 2 * B * H * Sq * 4          # lse and Delta
-        row = {"shape": f"q({B},{Sq},{H},{D}) kv({B},{Skv},{KVH},{D}) "
-                        f"{str(dt).split('.')[-1]} q_offset={qo} "
-                        f"kv_offset={ko}",
-               "err": errs, "tol": tols, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
-               "bwd_ms": bwd_ms, "plain_ms": plain_ms,
-               "pair_ms": turns["ms"], "pair_ms_range": turns["ms_range"],
-               "library_ms": turns["library_ms"],
-               "library_ms_range": turns["library_ms_range"],
-               "dq": bound(6 * D * pairs,
-                           3 * q_bytes + 2 * kv_bytes + stat_bytes, dt),
-               "dkv": bound(8 * D * pairs,
-                            2 * q_bytes + 4 * kv_bytes + stat_bytes, dt)}
+        row.update({
+            "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+            "dq_tflops": 6 * D * pairs / (dq_ms * 1e-3) / 1e12,
+            "dkv_tflops": 8 * D * pairs / (dkv_ms * 1e-3) / 1e12,
+            "bwd_ms": bwd_ms, "plain_ms": plain_ms,
+            "pair_ms": turns["ms"], "pair_ms_range": turns["ms_range"],
+            "library_ms": turns["library_ms"],
+            "library_ms_range": turns["library_ms_range"],
+            "dq": bound(6 * D * pairs,
+                        4 * q_bytes + 2 * kv_bytes + stat_bytes, dt),
+            "dkv": bound(8 * D * pairs,
+                         2 * q_bytes + 4 * kv_bytes + stat_bytes, dt)})
         rows[name] = row
         log(f"[bwd] {name}: " + json.dumps(row))
         del args, _grads, _keep, got, ref
@@ -613,9 +645,9 @@ def report_profile(prof, wall_s: float, out_dir: str, name: str) -> dict:
         n = e.name
         low = n.lower()
         cls = ("flash_attn_fwd" if "fwd_bf16" in n or "fwd_f32_fma" in n
-               else "flash_attn_bwd_dq" if "dq_bf16_mma" in n
+               else "flash_attn_bwd_dq" if "dq_bf16" in n
                or "dq_f32_fma" in n
-               else "flash_attn_bwd_dkv" if "dkv_bf16_mma" in n
+               else "flash_attn_bwd_dkv" if "dkv_bf16" in n
                or "dkv_f32_fma" in n
                else "memcpy/memset" if "memcpy" in low or "memset" in low
                else "gemm/gemv" if any(t in low for t in (

@@ -7,61 +7,73 @@
 //   * dkv replaces `_dkv_kernel` (flash_attention.py:219, launch :326).
 // Both recompute P = exp(Q K^T * scale - lse) from the forward's lse
 // under the causal mask on global positions, (q_off + i) >= (kv_off + j),
-// and use Delta = rowsum(dO * O), which the wrapper computes (as
-// `_bwd_impl` does, outside any kernel). With dP = dO V^T and
+// and use Delta = rowsum(dO * O). With dP = dO V^T and
 // dS = P * (dP - Delta) * scale:
 //   dQ = sum_j dS K,  dV = sum_i P^T dO,  dK = sum_i dS^T Q.
 // As in the Pallas kernels, P is rounded to dO's type before P^T dO
 // (:251) and dS to the input type before dS K and dS^T Q (:201, :256);
-// the sums are f32.
+// the sums are f32. Delta, which `_bwd_impl` computes outside the
+// kernels, is computed by the dq kernel, each block for its own rows
+// before its kv loop, into a (B, H, Sq) f32 buffer that the dk/dv kernel
+// reads: dk/dv runs after dq on the same stream.
 //
 // What bounds it on this card. Per visible (query, key) pair dq does
 // three products of length D (Q K^T, dO V^T, dS K: 6*D FLOPs) and dkv
-// four (8*D FLOPs), against bytes (q, k, v, dO, lse, Delta read once,
-// dq / dk / dv written once) that grow only as S. At the training shape
+// four (8*D FLOPs), against bytes (q, k, v, dO, O, lse read once, dq /
+// dk / dv written once) that grow only as S. At the training shape
 // (llama-654m: 8 x 1024 tokens, 12 query over 4 KV heads, D 128) that is
 // ~3.9e10 and ~5.2e10 FLOPs against ~40 MB: far above the ~295 bf16
 // FLOPs per byte where the tensor cores (989 TFLOP/s), not the memory
 // (3.35 TB/s), become the limit. Both kernels are bound by operations.
 //
 // What the design does about that:
-//   * bf16 (the training path): every product on the tensor cores with
-//     mma.sync m16n8k16 and f32 accumulators; the score tiles stay in
-//     registers and are re-packed there (rounded to bf16) as the A
-//     operand of the next product, so P and dS never leave the SM.
-//   * dq: one block of 4 warps per (batch, head, 64-row query tile),
-//     16 rows a warp; a loop over 64-row kv tiles up to the diagonal
-//     replaces the TPU's sequential kv grid axis, and dQ stays in f32
-//     registers until the one store. The block reads KV head
-//     h / (H / KVH) in place: no expanded copy of K or V.
-//   * dkv: one block of 4 warps per (batch, KV head, 64-row kv tile). It
-//     loops over the H / KVH query heads of its group and, per head,
-//     over the 32-row query tiles at or below the diagonal, accumulating
-//     dK and dV in f32 registers; it writes (B, Skv, KVH, D) directly.
-//     That loop is the group sum that the gradient of `jnp.repeat` does
-//     in the JAX package. It was chosen over per-head dK/dV followed by
-//     a sum because it needs no (B, Skv, H, D) f32 scratch (3x the
-//     output at GQA 12/4), no second pass and no atomics, and it sums
-//     the group in f32 in a fixed order: the result is the same from
-//     run to run. The price is that one block does G times the work of
-//     a per-head block (fewer, longer blocks: 8 x 4 x 16 = 512 at the
-//     training shape, ~4 waves on 132 SMs).
-//   * Operands whose B fragment needs the reduction dimension
-//     contiguous (K for dS K; Q and dO for dS^T Q and P^T dO) are also
-//     staged transposed in shared memory, written with neighbouring
-//     threads on neighbouring rows so the 2-byte stores do not collide.
-//   * f32 (the exact comparison): the same tiling on the CUDA cores with
+//   * bf16 (the training path): the forward's structure
+//     (flash_attn_fwd.cu) on hopper.cuh. A block of three warpgroups:
+//     one producer thread starts TMA loads into shared memory, the
+//     streamed operands through a 2-stage ring with full / empty
+//     mbarriers, and the producer warpgroup gives its registers to the
+//     consumers (setmaxnreg); two consumer warpgroups of 64 rows each run
+//     every product on wgmma with f32 accumulators in registers. The
+//     score tiles (S and dP, or their transposes) are 64 x 64 products
+//     with both operands K-major in shared memory, as the tensors lie in
+//     memory. P and dS are repacked from those accumulators into the
+//     bf16 register A operands of the next products (the rounding the
+//     Pallas kernels do), whose B operand (K for dS K; dO and Q for
+//     P^T dO and dS^T Q) is read MN-major through the transpose bit: no
+//     operand is copied transposed, and P and dS never leave the SM.
+//   * dkv: one block per (KV head, batch, 128-row kv tile), the first
+//     (heaviest) kv tiles first. K and V are loaded once; Q and dO tiles
+//     of 64 rows stream through the ring, for each query head of the GQA
+//     group and each q tile at or below the diagonal. A second producer
+//     warp stages each q tile's lse (times log2 e) and Delta in shared
+//     memory with plain loads: a (B, H, Sq) f32 row is not 16-byte
+//     aligned when Sq is not a multiple of 4, as TMA would need. Each
+//     consumer computes S^T = K Q^T and dP^T = V dO^T for its 64 kv rows
+//     and accumulates dK and dV (64 x D f32 each) in registers. That
+//     loop is the group sum that the gradient of `jnp.repeat` does in the
+//     JAX package: in f32, in a fixed order and without atomics, so the
+//     result is the same from run to run, and with no (B, Skv, H, D)
+//     scratch.
+//   * dq: one block per (head, batch, 128-row q tile), heaviest first.
+//     Q and dO are loaded once; K and V tiles of 64 rows stream through
+//     the ring up to the diagonal; the block reads KV head h / (H / KVH)
+//     in place. Each consumer owns 64 q rows: S = Q K^T, dP = dO V^T,
+//     dQ += dS K, with dQ (64 x D f32) in registers until the one store.
+//   * exp2 with scale * log2(e) folded into one multiply. The mask is
+//     evaluated only on tiles that straddle the diagonal or a ragged
+//     edge, and a consumer skips the products of a tile it cannot see.
+//   * f32 (the exact comparison): 4 threads a row on the CUDA cores with
 //     f32 FMAs, so f32 results are not rounded to TF32.
-//   * Masking is a select, never a multiply: exp(s - lse) of a masked
-//     score can be inf (a row that sees no key has lse ~ -1e30), and
-//     inf * 0 is NaN. Ragged rows and columns load as zeros, are masked
-//     out and are never stored.
-// This is the simple first kernel; wgmma, TMA and a pipelined smem ring
-// are later work.
+//   * Masking is a select, never a multiply: exp of a masked score can be
+//     inf (a row that sees no key has lse ~ -1e30), and inf * 0 is NaN.
+//     Ragged rows load as zeros (TMA fills them, the f32 loads write
+//     them), are masked out and are never stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -70,8 +82,9 @@ struct Params {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;    // (B, H, Sq)
-  const float* delta;  // (B, H, Sq)
+  const void* o;
+  const float* lse;  // (B, H, Sq)
+  float* delta;      // (B, H, Sq): written by dq, read by dkv
   void* dq;
   void* dk;
   void* dv;
@@ -80,6 +93,7 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   long long do_sb, do_ss, do_sh;
+  long long o_sb, o_ss, o_sh;
   long long dq_sb, dq_ss, dq_sh;
   long long dk_sb, dk_ss, dk_sh;
   long long dv_sb, dv_ss, dv_sh;
@@ -112,334 +126,488 @@ __device__ __forceinline__ long long row_stat(const Params& p, int b, int h,
   return ((long long)b * p.H + h) * p.Sq + qi;
 }
 
+// Whether some (query, key) pair of the 64 x 64 tile of query rows
+// [qi, qi + 64) and kv rows [kj, kj + 64) is masked (the tile straddles
+// the diagonal or a ragged edge), and whether all of them are.
+__device__ __forceinline__ bool some_masked(const Params& p, int qi, int kj) {
+  return qi + 64 > p.Sq || kj + 64 > p.Skv ||
+         (p.causal && p.q_off + qi < p.kv_off + kj + 63);
+}
+
+__device__ __forceinline__ bool all_masked(const Params& p, int qi, int kj) {
+  return qi >= p.Sq || kj >= p.Skv ||
+         (p.causal && p.q_off + qi + 63 < p.kv_off + kj);
+}
+
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, f32 accumulate)
+// bf16: warp-specialised, TMA + wgmma
 // ---------------------------------------------------------------------------
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The product of depth step kk over D that a K-major operand of R-row
+// tiles starts at (hopper.cuh's layout contract: D / 64 tiles of R rows
+// x 128 bytes, one after the other).
+template <int R>
+__device__ __forceinline__ uint64_t k_major(uint32_t base, int kk) {
+  return hopper::desc_sw128(base + (kk / 4) * (R * 128) + (kk % 4) * 32, 16,
+                            1024);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Depth step kk (rows 16 kk .. 16 kk + 15) of an MN-major B operand of
+// R-row tiles, D wide.
+template <int R>
+__device__ __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
+  return hopper::desc_sw128(base + kk * 16 * 128, R * 128, 1024);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// acc (+)= A B for one depth step, N = D: A in registers, B MN-major.
+template <int D>
+__device__ __forceinline__ void rs_tb(float* acc, const uint32_t (&a)[4],
+                                      uint64_t desc_b) {
+  if constexpr (D == 128)
+    hopper::wgmma_m64n128k16_rs_tb(acc, a, desc_b, 1);
+  else
+    hopper::wgmma_m64n64k16_rs_tb(acc, a, desc_b, 1);
 }
 
-// A fragment of a 16-row slice of a row-major smem tile (row stride rs),
-// rows r0..r0+15, reduction columns kk..kk+15.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
-                                       int rs, int r0, int kk, int g,
-                                       int t4) {
-  const bf16* x = tile + (r0 + g) * rs + kk + t4 * 2;
-  a[0] = ld32(x);
-  a[1] = ld32(x + 8 * rs);
-  a[2] = ld32(x + 8);
-  a[3] = ld32(x + 8 * rs + 8);
-}
-
-// A fragment from the f32 C fragments of two neighbouring 8-column
-// n-tiles (columns 16c..16c+15), rounded to bf16.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x0)[4],
-                                       const float (&x1)[4]) {
-  a[0] = pack_bf16(x0[0], x0[1]);
-  a[1] = pack_bf16(x0[2], x0[3]);
-  a[2] = pack_bf16(x1[0], x1[1]);
-  a[3] = pack_bf16(x1[2], x1[3]);
-}
-
-// Copy `rows` rows of a (row stride gs) global bf16 tile starting at row
-// r_begin into smem row-major (stride rs), zero-filling rows >= r_end.
-template <int D, int NTHREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, int rs, const bf16* src,
-                                          long long gs, int r_begin,
-                                          int r_end, int rows, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = tid; c < rows * CH; c += NTHREADS) {
-    int r = c / CH, col = (c % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r_begin + r < r_end)
-      val = *reinterpret_cast<const uint4*>(src + (r_begin + r) * gs + col);
-    *reinterpret_cast<uint4*>(dst + r * rs + col) = val;
-  }
-}
-
-// The same copy, also stored transposed (dst_t[d][r], stride ts). Threads
-// walk rows fastest so the transposed 2-byte stores hit distinct banks.
-template <int D, int NTHREADS>
-__device__ __forceinline__ void load_rows_t(bf16* dst, int rs, bf16* dst_t,
-                                            int ts, const bf16* src,
-                                            long long gs, int r_begin,
-                                            int r_end, int rows, int tid) {
-  constexpr int CH = D / 8;
-  for (int c = tid; c < rows * CH; c += NTHREADS) {
-    int r = c % rows, col = (c / rows) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r_begin + r < r_end)
-      val = *reinterpret_cast<const uint4*>(src + (r_begin + r) * gs + col);
-    *reinterpret_cast<uint4*>(dst + r * rs + col) = val;
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
+// Stores this thread's part of a 64 x D f32 accumulator as bf16 rows
+// row0 and row0 + 8 of `g` (row stride rs), those below `rows` only.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* g, long long rs,
+                                           const float* acc, int row0,
+                                           int rows, int t4) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dst_t[(col + i) * ts + r] = e[i];
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= rows) continue;
+    bf16* x = g + row * rs;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(x + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
   }
 }
 
-struct DqBf16 {
-  static constexpr int BQ = 64, BK = 64, PAD = 8;
-  template <int D>
-  static constexpr int smem() {
-    // Qs, dOs [64][D + 8]; Ks, Vs [64][D + 8]; Kt [D][64 + 8]
-    return (2 * BQ * (D + PAD) + 2 * BK * (D + PAD) + D * (BK + PAD)) * 2;
-  }
+// Shared-memory plan of the dk/dv kernel (byte offsets from a 1024-byte-
+// aligned base): K, V, the Q ring, the dO ring, the ring's lse and Delta
+// rows, the barriers.
+template <int D>
+struct DkvPlan {
+  static constexpr int BK = 128, BQ = 64, STAGES = 2;
+  static constexpr int KV_BYTES = BK * D * 2, Q_BYTES = BQ * D * 2;
+  static constexpr int K_OFF = 0, V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int STAT_OFF = DO_OFF + STAGES * Q_BYTES;
+  static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BQ * 4;
+  static constexpr int N_BARS = 1 + 2 * STAGES;
+  static constexpr int SMEM = BAR_OFF + 8 * N_BARS + 1024;  // + alignment
 };
 
 template <int D>
-__global__ void __launch_bounds__(128)
-dq_bf16_mma(Params p) {
-  constexpr int BQ = DqBf16::BQ, BK = DqBf16::BK, PAD = DqBf16::PAD;
-  constexpr int RS = D + PAD, TS = BK + PAD;
-  constexpr int NT = BK / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BQ][RS]
-  bf16* dOs = Qs + BQ * RS;                  // [BQ][RS]
-  bf16* Ks = dOs + BQ * RS;                  // [BK][RS]
-  bf16* Vs = Ks + BK * RS;                   // [BK][RS]
-  bf16* Kt = Vs + BK * RS;                   // [D][TS]
+__global__ void __launch_bounds__(384, 1)
+dkv_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map, Params p) {
+  using P = DkvPlan<D>;
+  constexpr int BK = P::BK, BQ = P::BQ, S = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(smem + P::STAT_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + S;
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (p.H / p.KVH);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int row0 = warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf16* dog =
-      static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  load_rows<D, 128>(Qs, RS, qg, p.q_ss, q0, p.Sq, BQ, tid);
-  load_rows<D, 128>(dOs, RS, dog, p.do_ss, q0, p.Sq, BQ, tid);
-  float lse[2], dlt[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int qi = q0 + row0 + 8 * r;
-    bool in = qi < p.Sq;
-    lse[r] = in ? p.lse[row_stat(p, b, h, qi)] : 0.f;
-    dlt[r] = in ? p.delta[row_stat(p, b, h, qi)] : 0.f;
-  }
-
-  float dq[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
-  const int kv_end = kv_limit(p, min(q0 + BQ, p.Sq));
-
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // previous tile consumed (and Q, dO stored)
-    load_rows_t<D, 128>(Ks, RS, Kt, TS, kg, p.k_ss, k0, p.Skv, BK, tid);
-    load_rows<D, 128>(Vs, RS, vg, p.v_ss, k0, p.Skv, BK, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x BK columns.
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t aq[4], ao[4];
-      load_a(aq, Qs, RS, warp * 16, kk, g, t4);
-      load_a(ao, dOs, RS, warp * 16, kk, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const bf16* kb = Ks + (nt * 8 + g) * RS + kk + t4 * 2;
-        const bf16* vb = Vs + (nt * 8 + g) * RS + kk + t4 * 2;
-        mma_bf16(s[nt], aq, ld32(kb), ld32(kb + 8));
-        mma_bf16(dp[nt], ao, ld32(vb), ld32(vb + 8));
-      }
-    }
-
-    // dS, in place of S. Element e of n-tile nt sits at row
-    // row0 + 8*(e>>1), column k0 + nt*8 + t4*2 + (e&1).
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int r = e >> 1;
-        int qi = q0 + row0 + 8 * r;
-        int kj = k0 + nt * 8 + t4 * 2 + (e & 1);
-        float pe = visible(p, qi, kj) ? expf(s[nt][e] * p.scale - lse[r])
-                                      : 0.f;
-        s[nt][e] = pe * (dp[nt][e] - dlt[r]) * p.scale;
-      }
-
-    // dQ += dS K, with dS rounded to bf16 (K's type, as `_dq_kernel`).
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {
-      uint32_t a[4];
-      pack_a(a, s[2 * c], s[2 * c + 1]);
-#pragma unroll
-      for (int nd = 0; nd < DT; ++nd) {
-        const bf16* kb = Kt + (nd * 8 + g) * TS + c * 16 + t4 * 2;
-        mma_bf16(dq[nd], a, ld32(kb), ld32(kb + 8));
-      }
-    }
-  }
-
-  bf16* dqg = static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int qi = q0 + row0 + 8 * r;
-    if (qi >= p.Sq) continue;
-    bf16* row = dqg + qi * p.dq_ss;
-#pragma unroll
-    for (int nd = 0; nd < DT; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8 + t4 * 2) =
-          __floats2bfloat162_rn(dq[nd][2 * r], dq[nd][2 * r + 1]);
-  }
-}
-
-struct DkvBf16 {
-  static constexpr int BK = 64, BQ = 32, PAD = 8;
-  template <int D>
-  static constexpr int smem() {
-    // Ks, Vs [64][D + 8]; Qs, dOs [32][D + 8]; Qt, dOt [D][32 + 8];
-    // lse, Delta [32] f32
-    return (2 * BK * (D + PAD) + 2 * BQ * (D + PAD) + 2 * D * (BQ + PAD)) *
-               2 + 2 * BQ * 4;
-  }
-};
-
-template <int D>
-__global__ void __launch_bounds__(128)
-dkv_bf16_mma(Params p) {
-  constexpr int BK = DkvBf16::BK, BQ = DkvBf16::BQ, PAD = DkvBf16::PAD;
-  constexpr int RS = D + PAD, TS = BQ + PAD;
-  constexpr int NT = BQ / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BK][RS]
-  bf16* Vs = Ks + BK * RS;                   // [BK][RS]
-  bf16* Qs = Vs + BK * RS;                   // [BQ][RS]
-  bf16* dOs = Qs + BQ * RS;                  // [BQ][RS]
-  bf16* Qt = dOs + BQ * RS;                  // [D][TS]
-  bf16* dOt = Qt + D * TS;                   // [D][TS]
-  float* ls = reinterpret_cast<float*>(dOt + D * TS);  // [BQ]
-  float* dl = ls + BQ;                                 // [BQ]
-
-  const int k0 = blockIdx.x * BK, kvh = blockIdx.y, b = blockIdx.z;
+  const int kvh = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * BK;
   const int G = p.H / p.KVH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int krow0 = warp * 16 + g;  // this thread's kv rows: +0, +8
-
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_rows<D, 128>(Ks, RS, kg, p.k_ss, k0, p.Skv, BK, tid);
-  load_rows<D, 128>(Vs, RS, vg, p.v_ss, k0, p.Skv, BK, tid);
-
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
+  // The block's (query head, q tile) pairs, head-major, each q tile from
+  // i_first on; the i-th pair takes ring slot i % S.
   const int i_first = q_start(p, k0) / BQ * BQ;
+  const bool any = i_first < p.Sq;
 
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const bf16* dog =
-        static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int i0 = i_first; i0 < p.Sq; i0 += BQ) {
-      __syncthreads();  // previous q tile consumed (and K, V stored)
-      load_rows_t<D, 128>(Qs, RS, Qt, TS, qg, p.q_ss, i0, p.Sq, BQ, tid);
-      load_rows_t<D, 128>(dOs, RS, dOt, TS, dog, p.do_ss, i0, p.Sq, BQ,
-                          tid);
-      if (tid < BQ) {
-        bool in = i0 + tid < p.Sq;
-        ls[tid] = in ? p.lse[row_stat(p, b, h, i0 + tid)] : 0.f;
-        dl[tid] = in ? p.delta[row_stat(p, b, h, i0 + tid)] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 kv rows x BQ q.
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int i = 0; i < NT; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D; kk += 16) {
-        uint32_t ak[4], av[4];
-        load_a(ak, Ks, RS, warp * 16, kk, g, t4);
-        load_a(av, Vs, RS, warp * 16, kk, g, t4);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* qb = Qs + (nt * 8 + g) * RS + kk + t4 * 2;
-          const bf16* ob = dOs + (nt * 8 + g) * RS + kk + t4 * 2;
-          mma_bf16(s[nt], ak, ld32(qb), ld32(qb + 8));
-          mma_bf16(dp[nt], av, ld32(ob), ld32(ob + 8));
-        }
-      }
-
-      // P^T in place of S^T, dS^T in place of dP^T. Element e of n-tile
-      // nt sits at kv row k0 + krow0 + 8*(e>>1), q column
-      // i0 + nt*8 + t4*2 + (e&1).
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int kj = k0 + krow0 + 8 * (e >> 1);
-          int qc = nt * 8 + t4 * 2 + (e & 1);
-          float pe = visible(p, i0 + qc, kj)
-                         ? expf(s[nt][e] * p.scale - ls[qc]) : 0.f;
-          s[nt][e] = pe;
-          dp[nt][e] = pe * (dp[nt][e] - dl[qc]) * p.scale;
-        }
-
-      // dV += P^T dO (P rounded to dO's type), dK += dS^T Q (dS rounded
-      // to Q's type), as `_dkv_kernel`.
-#pragma unroll
-      for (int c = 0; c < BQ / 16; ++c) {
-        uint32_t ap[4], ad[4];
-        pack_a(ap, s[2 * c], s[2 * c + 1]);
-        pack_a(ad, dp[2 * c], dp[2 * c + 1]);
-#pragma unroll
-        for (int nd = 0; nd < DT; ++nd) {
-          const bf16* ob = dOt + (nd * 8 + g) * TS + c * 16 + t4 * 2;
-          const bf16* qb = Qt + (nd * 8 + g) * TS + c * 16 + t4 * 2;
-          mma_bf16(dv[nd], ap, ld32(ob), ld32(ob + 8));
-          mma_bf16(dk[nd], ad, ld32(qb), ld32(qb + 8));
-        }
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1 + 32);  // TMA arrival + the stats warp
+      hopper::mbar_init(&empty[s], 8);      // one per consumer warp
     }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  bf16* dkg = static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh;
-  bf16* dvg = static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh;
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: thread 0 starts the TMA loads, warp 1 stages
+    // lse and Delta. 40 registers a thread (24 spill in warp 1's loop),
+    // which leaves the consumers 232.
+    hopper::regs_dec<40>();
+    if (threadIdx.x == 0 && any) {
+      hopper::prefetch_tmap(&q_map);
+      hopper::prefetch_tmap(&k_map);
+      hopper::prefetch_tmap(&v_map);
+      hopper::prefetch_tmap(&do_map);
+      hopper::mbar_expect_tx(kv_full, 2 * P::KV_BYTES);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    int kj = k0 + krow0 + 8 * r;
-    if (kj >= p.Skv) continue;
-    bf16* krow = dkg + kj * p.dk_ss;
-    bf16* vrow = dvg + kj * p.dv_ss;
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(smem + P::K_OFF + c * BK * 128, &k_map, kv_full,
+                            c * 64, k0, kvh, b);
+        hopper::tma_load_4d(smem + P::V_OFF + c * BK * 128, &v_map, kv_full,
+                            c * 64, k0, kvh, b);
+      }
+      int it = 0;
+      for (int h = kvh * G; h < kvh * G + G; ++h)
+        for (int i0 = i_first; i0 < p.Sq; i0 += BQ, ++it) {
+          const int s = it % S;
+          if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          uint8_t* qs = smem + P::Q_OFF + s * P::Q_BYTES;
+          uint8_t* dos = smem + P::DO_OFF + s * P::Q_BYTES;
+          hopper::mbar_expect_tx(&full[s], 2 * P::Q_BYTES);
 #pragma unroll
-    for (int nd = 0; nd < DT; ++nd) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + nd * 8 + t4 * 2) =
-          __floats2bfloat162_rn(dk[nd][2 * r], dk[nd][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + nd * 8 + t4 * 2) =
-          __floats2bfloat162_rn(dv[nd][2 * r], dv[nd][2 * r + 1]);
+          for (int c = 0; c < D / 64; ++c) {
+            hopper::tma_load_4d(qs + c * BQ * 128, &q_map, &full[s], c * 64,
+                                i0, h, b);
+            hopper::tma_load_4d(dos + c * BQ * 128, &do_map, &full[s],
+                                c * 64, i0, h, b);
+          }
+        }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      const int lane = threadIdx.x - 32;
+      int it = 0;
+      for (int h = kvh * G; h < kvh * G + G; ++h) {
+        const float* lse_row = p.lse + row_stat(p, b, h, 0);
+        const float* dlt_row = p.delta + row_stat(p, b, h, 0);
+        for (int i0 = i_first; i0 < p.Sq; i0 += BQ, ++it) {
+          const int s = it % S;
+          if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          float* st = stats + s * 2 * BQ;
+#pragma unroll
+          for (int j = lane; j < BQ; j += 32) {
+            const bool in = i0 + j < p.Sq;  // past Sq: finite, and masked
+            st[j] = in ? lse_row[i0 + j] * kLog2e : 0.f;
+            st[BQ + j] = in ? dlt_row[i0 + j] : 0.f;
+          }
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
     }
+  } else {
+    // Consumer warpgroups: 64 kv rows each.
+    hopper::regs_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int kf = k0 + cw * 64;               // first kv row of this group
+    const int krow = kf + warp * 16 + g;       // rows krow and krow + 8
+    const uint32_t k_base =
+        hopper::smem_u32(smem + P::K_OFF) + cw * 64 * 128;
+    const uint32_t v_base =
+        hopper::smem_u32(smem + P::V_OFF) + cw * 64 * 128;
+    const float sl2 = p.scale * kLog2e;
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    if (any) hopper::mbar_wait(kv_full, 0);
+    int it = 0;
+    for (int gi = 0; gi < G; ++gi) {
+      for (int i0 = i_first; i0 < p.Sq; i0 += BQ, ++it) {
+        const int s = it % S;
+        const uint32_t q_base =
+            hopper::smem_u32(smem + P::Q_OFF + s * P::Q_BYTES);
+        const uint32_t do_base =
+            hopper::smem_u32(smem + P::DO_OFF + s * P::Q_BYTES);
+        hopper::mbar_wait(&full[s], (it / S) & 1);
+        if (!all_masked(p, i0, kf)) {
+          // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x BQ q columns.
+          float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.f;
+          hopper::fence_regs<BQ / 2>(st);
+          hopper::fence_regs<BQ / 2>(dpt);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hopper::wgmma_m64n64k16_ss(st, k_major<BK>(k_base, kk),
+                                       k_major<BQ>(q_base, kk), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk)
+            hopper::wgmma_m64n64k16_ss(dpt, k_major<BK>(v_base, kk),
+                                       k_major<BQ>(do_base, kk), kk > 0);
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs<BQ / 2>(st);
+          hopper::fence_regs<BQ / 2>(dpt);
+
+          // P^T in place of S^T, dS^T in place of dP^T. Element e of
+          // 8-column slice n sits at kv row krow + 8 * (e / 2), q column
+          // i0 + 8 * n + 2 * t4 + e % 2.
+          const float* lse2 = stats + s * 2 * BQ;
+          const float* dlt = lse2 + BQ;
+          const bool mask = some_masked(p, i0, kf);
+#pragma unroll
+          for (int n = 0; n < BQ / 8; ++n) {
+            const float2 l2 =
+                *reinterpret_cast<const float2*>(lse2 + 8 * n + 2 * t4);
+            const float2 d2 =
+                *reinterpret_cast<const float2*>(dlt + 8 * n + 2 * t4);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * n + e;
+              float pe = hopper::exp2_approx(
+                  fmaf(st[i], sl2, -(e % 2 ? l2.y : l2.x)));
+              if (mask && !visible(p, i0 + 8 * n + 2 * t4 + e % 2,
+                                   krow + 8 * (e / 2)))
+                pe = 0.f;
+              dpt[i] = pe * (dpt[i] - (e % 2 ? d2.y : d2.x)) * p.scale;
+              st[i] = pe;
+            }
+          }
+
+          // dV += P^T dO (P rounded to dO's type), dK += dS^T Q (dS
+          // rounded to Q's type), as `_dkv_kernel`; dO and Q are [q][D],
+          // read MN-major.
+          uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            hopper::acc_to_a(st, kk, pa[kk]);
+            hopper::acc_to_a(dpt, kk, da[kk]);
+          }
+          hopper::fence_regs<D / 2>(dv);
+          hopper::fence_regs<D / 2>(dk);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            rs_tb<D>(dv, pa[kk], mn_major<BQ>(do_base, kk));
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            rs_tb<D>(dk, da[kk], mn_major<BQ>(q_base, kk));
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs<D / 2>(dv);
+          hopper::fence_regs<D / 2>(dk);
+        }
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      }
+    }
+
+    store_rows<D>(static_cast<bf16*>(p.dk) + b * p.dk_sb + kvh * p.dk_sh,
+                  p.dk_ss, dk, krow, p.Skv, t4);
+    store_rows<D>(static_cast<bf16*>(p.dv) + b * p.dv_sb + kvh * p.dv_sh,
+                  p.dv_ss, dv, krow, p.Skv, t4);
+  }
+}
+
+// Shared-memory plan of the dq kernel: Q, dO, the K ring, the V ring, the
+// barriers.
+template <int D>
+struct DqPlan {
+  static constexpr int BQ = 128, BK = 64, STAGES = 2;
+  static constexpr int Q_BYTES = BQ * D * 2, KV_BYTES = BK * D * 2;
+  static constexpr int Q_OFF = 0, DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int N_BARS = 1 + 3 * STAGES;
+  static constexpr int SMEM = BAR_OFF + 8 * N_BARS + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+dq_bf16_wgmma(const __grid_constant__ CUtensorMap q_map,
+              const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const __grid_constant__ CUtensorMap do_map, Params p) {
+  using P = DqPlan<D>;
+  constexpr int BQ = P::BQ, BK = P::BK, S = P::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align_1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + S;
+  uint64_t* empty = bars + 1 + 2 * S;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = p.causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * BQ;
+  const int kvh = h / (p.H / p.KVH);
+  const int kv_end = kv_limit(p, min(q0 + BQ, p.Sq));
+  const int n_kv = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: one thread keeps the ring full.
+    hopper::regs_dec<24>();
+    if (threadIdx.x == 0 && n_kv > 0) {
+      hopper::prefetch_tmap(&q_map);
+      hopper::prefetch_tmap(&k_map);
+      hopper::prefetch_tmap(&v_map);
+      hopper::prefetch_tmap(&do_map);
+      hopper::mbar_expect_tx(q_full, 2 * P::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(smem + P::Q_OFF + c * BQ * 128, &q_map, q_full,
+                            c * 64, q0, h, b);
+        hopper::tma_load_4d(smem + P::DO_OFF + c * BQ * 128, &do_map,
+                            q_full, c * 64, q0, h, b);
+      }
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % S;
+        if (it >= S) hopper::mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+        uint8_t* ks = smem + P::K_OFF + s * P::KV_BYTES;
+        uint8_t* vs = smem + P::V_OFF + s * P::KV_BYTES;
+        hopper::mbar_expect_tx(&k_full[s], P::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          hopper::tma_load_4d(ks + c * BK * 128, &k_map, &k_full[s], c * 64,
+                              it * BK, kvh, b);
+        hopper::mbar_expect_tx(&v_full[s], P::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          hopper::tma_load_4d(vs + c * BK * 128, &v_map, &v_full[s], c * 64,
+                              it * BK, kvh, b);
+      }
+    }
+  } else {
+    // Consumer warpgroups: 64 query rows each.
+    hopper::regs_inc<240>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int tw = threadIdx.x % 128, warp = tw / 32, lane = tw % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int q_first = q0 + cw * 64;          // first row of this group
+    const int row0 = q_first + warp * 16 + g;  // rows row0 and row0 + 8
+    const uint32_t q_base =
+        hopper::smem_u32(smem + P::Q_OFF) + cw * 64 * 128;
+    const uint32_t do_base =
+        hopper::smem_u32(smem + P::DO_OFF) + cw * 64 * 128;
+    const float sl2 = p.scale * kLog2e;
+
+    // Prologue, while the loads fly: lse (times log2 e) and Delta =
+    // rowsum(dO * O) of rows row0 and row0 + 8 in f32, the 4 threads of a
+    // row reading 16 bytes at a time; Delta goes out for the dk/dv
+    // kernel. Rows past Sq take 0 (finite, and masked).
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = row0 + 8 * r;
+      const bool in = qi < p.Sq;
+      float acc = 0.f;
+      if (in) {
+        const bf16* dor = static_cast<const bf16*>(p.dout) + b * p.do_sb +
+                          h * p.do_sh + qi * p.do_ss;
+        const bf16* orow = static_cast<const bf16*>(p.o) + b * p.o_sb +
+                           h * p.o_sh + qi * p.o_ss;
+#pragma unroll
+        for (int c = t4; c < D / 8; c += 4) {
+          const uint4 x = *reinterpret_cast<const uint4*>(dor + 8 * c);
+          const uint4 y = *reinterpret_cast<const uint4*>(orow + 8 * c);
+          const __nv_bfloat162* xs =
+              reinterpret_cast<const __nv_bfloat162*>(&x);
+          const __nv_bfloat162* ys =
+              reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 fx = __bfloat1622float2(xs[j]);
+            const float2 fy = __bfloat1622float2(ys[j]);
+            acc = fmaf(fx.x, fy.x, acc);
+            acc = fmaf(fx.y, fy.y, acc);
+          }
+        }
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      dlt[r] = acc;
+      lse2[r] = in ? p.lse[row_stat(p, b, h, qi)] * kLog2e : 0.f;
+      if (in && t4 == 0) p.delta[row_stat(p, b, h, qi)] = acc;
+    }
+
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    if (n_kv > 0) hopper::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int s = it % S;
+      const uint32_t par = (it / S) & 1;
+      const int k0 = it * BK;
+      const uint32_t k_base =
+          hopper::smem_u32(smem + P::K_OFF + s * P::KV_BYTES);
+      const uint32_t v_base =
+          hopper::smem_u32(smem + P::V_OFF + s * P::KV_BYTES);
+      // Both waits even for a tile this group skips: a slot is refilled
+      // only after both groups are done with it.
+      hopper::mbar_wait(&k_full[s], par);
+      hopper::mbar_wait(&v_full[s], par);
+      if (!all_masked(p, q_first, k0)) {
+        // S = Q K^T and dP = dO V^T: 64 q rows x BK kv columns.
+        float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
+        hopper::fence_regs<BK / 2>(sc);
+        hopper::fence_regs<BK / 2>(dp);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_m64n64k16_ss(sc, k_major<BQ>(q_base, kk),
+                                     k_major<BK>(k_base, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_m64n64k16_ss(dp, k_major<BQ>(do_base, kk),
+                                     k_major<BK>(v_base, kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<BK / 2>(sc);
+        hopper::fence_regs<BK / 2>(dp);
+
+        // dS in place of dP. Element i sits at row row0 + 8 * ((i / 2) %
+        // 2), column k0 + 8 * (i / 4) + 2 * t4 + i % 2.
+        const bool mask = some_masked(p, q_first, k0);
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int r = (i / 2) % 2;
+          float pe = hopper::exp2_approx(fmaf(sc[i], sl2, -lse2[r]));
+          if (mask && !visible(p, row0 + 8 * r, k0 + 8 * (i / 4) + 2 * t4 +
+                                                    i % 2))
+            pe = 0.f;
+          dp[i] = pe * (dp[i] - dlt[r]) * p.scale;
+        }
+
+        // dQ += dS K, dS rounded to K's type (as `_dq_kernel`); K is
+        // [kv][D], read MN-major.
+        uint32_t da[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) hopper::acc_to_a(dp, kk, da[kk]);
+        hopper::fence_regs<D / 2>(dq);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          rs_tb<D>(dq, da[kk], mn_major<BK>(k_base, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<D / 2>(dq);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    store_rows<D>(static_cast<bf16*>(p.dq) + b * p.dq_sb + h * p.dq_sh,
+                  p.dq_ss, dq, row0, p.Sq, t4);
   }
 }
 
@@ -496,7 +664,20 @@ dq_f32_fma(Params p) {
   load_rows_f32(dOs, RS, dog, p.do_ss, q0, p.Sq, BQ, D, tid);
   const bool in = qi < p.Sq;
   const float lse = in ? p.lse[row_stat(p, b, h, qi)] : 0.f;
-  const float dlt = in ? p.delta[row_stat(p, b, h, qi)] : 0.f;
+  // Delta = rowsum(dO * O) of row qi, from the row's 4 threads; it goes
+  // out for the dk/dv kernel.
+  float dlt = 0.f;
+  if (in) {
+    const float* dor = dog + qi * p.do_ss;
+    const float* orow = static_cast<const float*>(p.o) + b * p.o_sb +
+                        h * p.o_sh + qi * p.o_ss;
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+      dlt = fmaf(dor[c4 + 4 * i], orow[c4 + 4 * i], dlt);
+  }
+  dlt += __shfl_xor_sync(0xffffffffu, dlt, 1);
+  dlt += __shfl_xor_sync(0xffffffffu, dlt, 2);
+  if (in && c4 == 0) p.delta[row_stat(p, b, h, qi)] = dlt;
 
   float dq[ND];
 #pragma unroll
@@ -646,42 +827,84 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Params& p,
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// A bf16 kernel: tensor maps over q, k, v and dO as they lie in memory,
+// the q-side ones (q, dO) in boxes of `q_rows` rows and the kv-side ones
+// in boxes of `kv_rows`; 384 threads a block.
+template <typename Kernel>
+int launch_bf16(Kernel kernel, int smem, dim3 grid, int q_rows, int kv_rows,
+                const Params& p, int B, int D, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  // A length of 0 still needs a valid map; no tile of it is loaded.
+  const int sq = p.Sq > 0 ? p.Sq : 1, skv = p.Skv > 0 ? p.Skv : 1;
+  if (hopper::encode_bshd(&qm, p.q, B, sq, p.H, D, p.q_sb, p.q_ss, p.q_sh,
+                          q_rows) ||
+      hopper::encode_bshd(&dom, p.dout, B, sq, p.H, D, p.do_sb, p.do_ss,
+                          p.do_sh, q_rows) ||
+      hopper::encode_bshd(&km, p.k, B, skv, p.KVH, D, p.k_sb, p.k_ss,
+                          p.k_sh, kv_rows) ||
+      hopper::encode_bshd(&vm, p.v, B, skv, p.KVH, D, p.v_sb, p.v_ss,
+                          p.v_sh, kv_rows))
+    return -2;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, 384, smem, stream>>>(qm, km, vm, dom, p);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_bf16(const Params& p, int B, cudaStream_t stream) {
+  using P = DqPlan<D>;
+  return launch_bf16(dq_bf16_wgmma<D>, P::SMEM,
+                     dim3(p.H, B, ceil_div(p.Sq, P::BQ)), P::BQ, P::BK, p, B,
+                     D, stream);
+}
+
+template <int D>
+int launch_dkv_bf16(const Params& p, int B, cudaStream_t stream) {
+  using P = DkvPlan<D>;
+  return launch_bf16(dkv_bf16_wgmma<D>, P::SMEM,
+                     dim3(p.KVH, B, ceil_div(p.Skv, P::BK)), P::BQ, P::BK, p,
+                     B, D, stream);
+}
+
 }  // namespace
 
-// Both entry points take the same arguments; dq uses `dq`, dkv uses `dk`
-// and `dv`. dtype: 0 = float32, 1 = bfloat16. Strides are in elements;
-// the last (head-dim) stride is 1. lse and delta are contiguous
-// (B, H, Sq) f32. Returns a cudaError_t (0 on success), or -1 for a
-// dtype / head size the kernels do not take.
+// Both entry points take the same arguments; dq uses `out` and `dq` and
+// writes `delta`, dkv reads `delta` and uses `dk` and `dv`, so dkv is
+// launched after dq on the same stream. dtype: 0 = float32,
+// 1 = bfloat16. Strides are in elements; the last (head-dim) stride is 1;
+// for bf16 the base pointers are 16-byte aligned and the other strides
+// multiples of 8. lse and delta are contiguous (B, H, Sq) f32. Returns a
+// cudaError_t (0 on success), -1 for a dtype / head size the kernels do
+// not take, or -2 for bf16 operands that cuTensorMapEncodeTiled refuses
+// as tensor maps.
 #define BWD_ARGS                                                           \
   const void *q, const void *k, const void *v, const void *dout,           \
-      const float *lse, const float *delta, void *dq, void *dk, void *dv,  \
-      int dtype, int B, int H, int KVH, int Sq, int Skv, int D,            \
+      const void *out, const float *lse, float *delta, void *dq, void *dk, \
+      void *dv, int dtype, int B, int H, int KVH, int Sq, int Skv, int D,  \
       long long q_sb, long long q_ss, long long q_sh, long long k_sb,      \
       long long k_ss, long long k_sh, long long v_sb, long long v_ss,      \
       long long v_sh, long long do_sb, long long do_ss, long long do_sh,   \
-      long long dq_sb, long long dq_ss, long long dq_sh, long long dk_sb,  \
-      long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,  \
-      long long dv_sh, float scale, int q_off, int kv_off, int causal,     \
-      void *stream
+      long long o_sb, long long o_ss, long long o_sh, long long dq_sb,     \
+      long long dq_ss, long long dq_sh, long long dk_sb, long long dk_ss,  \
+      long long dk_sh, long long dv_sb, long long dv_ss, long long dv_sh,  \
+      float scale, int q_off, int kv_off, int causal, void *stream
 
-#define BWD_PARAMS                                                          \
-  Params p{q,     k,     v,     dout,  lse,   delta, dq,    dk,    dv,     \
-           H,     KVH,   Sq,    Skv,   q_sb,  q_ss,  q_sh,  k_sb,  k_ss,   \
-           k_sh,  v_sb,  v_ss,  v_sh,  do_sb, do_ss, do_sh, dq_sb, dq_ss,  \
-           dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, scale, q_off,  \
-           kv_off, causal};                                                 \
+#define BWD_PARAMS                                                         \
+  Params p{q,     k,     v,     dout,  out,   lse,   delta, dq,    dk,     \
+           dv,    H,     KVH,   Sq,    Skv,   q_sb,  q_ss,  q_sh,  k_sb,   \
+           k_ss,  k_sh,  v_sb,  v_ss,  v_sh,  do_sb, do_ss, do_sh, o_sb,   \
+           o_ss,  o_sh,  dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb,  \
+           dv_ss, dv_sh, scale, q_off, kv_off, causal};                    \
   cudaStream_t s = static_cast<cudaStream_t>(stream)
 
 extern "C" int flash_attn_bwd_dq(BWD_ARGS) {
   BWD_PARAMS;
   if (B == 0 || Sq == 0) return 0;
   if (dtype == 1) {
-    dim3 grid(ceil_div(Sq, DqBf16::BQ), H, B);
-    if (D == 128)
-      return launch(dq_bf16_mma<128>, DqBf16::smem<128>(), grid, p, s);
-    if (D == 64)
-      return launch(dq_bf16_mma<64>, DqBf16::smem<64>(), grid, p, s);
+    if (D == 128) return launch_dq_bf16<128>(p, B, s);
+    if (D == 64) return launch_dq_bf16<64>(p, B, s);
   } else if (dtype == 0) {
     dim3 grid(ceil_div(Sq, DqF32::BQ), H, B);
     if (D == 128)
@@ -696,11 +919,8 @@ extern "C" int flash_attn_bwd_dkv(BWD_ARGS) {
   BWD_PARAMS;
   if (B == 0 || Skv == 0) return 0;
   if (dtype == 1) {
-    dim3 grid(ceil_div(Skv, DkvBf16::BK), KVH, B);
-    if (D == 128)
-      return launch(dkv_bf16_mma<128>, DkvBf16::smem<128>(), grid, p, s);
-    if (D == 64)
-      return launch(dkv_bf16_mma<64>, DkvBf16::smem<64>(), grid, p, s);
+    if (D == 128) return launch_dkv_bf16<128>(p, B, s);
+    if (D == 64) return launch_dkv_bf16<64>(p, B, s);
   } else if (dtype == 0) {
     dim3 grid(ceil_div(Skv, DkvF32::BK), KVH, B);
     if (D == 128)

@@ -118,8 +118,8 @@ _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _TAIL = [ctypes.c_float, _I, _I, _I, _VP]
 _ARGTYPES = {
     "flash_attn_fwd": [_VP] * 5 + [_I] * 7 + [_LL] * 12 + _TAIL,
-    "flash_attn_bwd_dq": [_VP] * 9 + [_I] * 7 + [_LL] * 21 + _TAIL,
-    "flash_attn_bwd_dkv": [_VP] * 9 + [_I] * 7 + [_LL] * 21 + _TAIL,
+    "flash_attn_bwd_dq": [_VP] * 10 + [_I] * 7 + [_LL] * 24 + _TAIL,
+    "flash_attn_bwd_dkv": [_VP] * 10 + [_I] * 7 + [_LL] * 24 + _TAIL,
 }
 _entries = {}
 
@@ -199,8 +199,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 def _delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """Delta = rowsum(dO * O) in f32, (B, H, Sq); as `_bwd_impl` does,
-    outside the kernels."""
+    """Delta = rowsum(dO * O) in f32, (B, H, Sq), for the plain version,
+    as `_bwd_impl` computes it outside its kernels (on the card the dq
+    kernel computes it)."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2)
 
 
@@ -246,7 +247,8 @@ def flash_attention_bwd_plain(q, k, v, do, out, lse, *, causal: bool = True,
 
 def _bwd_prepare(q, k, v, do, out, lse, causal, sm_scale, q_offset,
                  kv_offset):
-    """Check the inputs, compute Delta and allocate dq / dk / dv: ->
+    """Check the inputs and allocate dq / dk / dv and the (B, H, Sq) f32
+    Delta buffer that the dq kernel fills and the dk/dv kernel reads: ->
     (the C arguments but the stream, (dq, dk, dv), the tensors the
     pointers point into, which must outlive the launches)."""
     _check("flash_attn_bwd", q, k, v, do, out)
@@ -255,18 +257,19 @@ def _bwd_prepare(q, k, v, do, out, lse, causal, sm_scale, q_offset,
     if lse.dtype != torch.float32 or lse.shape != (B, H, Sq):
         raise ValueError(f"lse must be float32 (B, H, Sq) = {(B, H, Sq)}, "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    q, k, v, do = (_kernel_layout(x) for x in (q, k, v, do))
+    q, k, v, do, out = (_kernel_layout(x) for x in (q, k, v, do, out))
     lse = lse.contiguous()
-    delta = _delta(do, out).contiguous()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, KVH, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, Skv, KVH, D), dtype=v.dtype, device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), _DTYPE_CODE[q.dtype], B, H, KVH, Sq, Skv, D,
-            *_strides(q, k, v, do, dq, dk, dv), float(sm_scale),
-            int(q_offset), int(kv_offset), int(bool(causal)))
-    return args, (dq, dk, dv), (q, k, v, do, lse, delta)
+            out.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPE_CODE[q.dtype], B, H, KVH,
+            Sq, Skv, D, *_strides(q, k, v, do, out, dq, dk, dv),
+            float(sm_scale), int(q_offset), int(kv_offset),
+            int(bool(causal)))
+    return args, (dq, dk, dv), (q, k, v, do, out, lse, delta)
 
 
 def _bwd_launch(name: str, args, device: torch.device) -> None:
@@ -282,6 +285,9 @@ def _bwd_launch(name: str, args, device: torch.device) -> None:
 
 def _bwd_cuda(q, k, v, do, out, lse, causal, sm_scale, q_offset,
               kv_offset):
+    """dq, then dk/dv, on the current stream: the dq kernel writes Delta
+    into the buffer of `_bwd_prepare` and the dk/dv kernel reads it, so
+    dk/dv is launched after dq with the same arguments, never alone."""
     args, grads, _keep = _bwd_prepare(q, k, v, do, out, lse, causal,
                                       sm_scale, q_offset, kv_offset)
     for name, counter in (("flash_attn_bwd_dq", dq_launches),

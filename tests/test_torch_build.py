@@ -1,19 +1,23 @@
-"""The port's kernel build (ray_tpu_torch.ops._build) and the layout
-contract of the forward kernel's tensor maps, on the CPU: no nvcc runs.
+"""The port's kernel build (ray_tpu_torch.ops._build), the layout
+contract of the kernels' tensor maps and the ctypes signatures of their C
+entry points, on the CPU: no nvcc runs.
 
 A library's path carries a hash of its source, of every header beside it
 and of the flags, so an edited header rebuilds every source that may
 include it; an unchanged tree keeps its path, so a built library is
 reused."""
 
+import ctypes
 import os
+import re
 import shutil
 
 import pytest
 import torch
 
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.ops.flash_attention import _aligned, _kernel_layout
+from ray_tpu_torch.ops.flash_attention import (_ARGTYPES, _aligned,
+                                               _kernel_layout)
 
 
 @pytest.fixture
@@ -114,3 +118,36 @@ def test_kernel_layout_reads_an_aligned_view_in_place():
     fused = torch.zeros(2, 16, 8, 128, dtype=torch.bfloat16)
     k = fused[:, :, 4:6]
     assert _kernel_layout(k) is k
+
+
+def _c_argtypes(source, name):
+    """The ctypes types of the parameters of the C entry point `name` in
+    csrc/`source`, read from the source (a parameter list may be a
+    `#define`d macro, as the backward's BWD_ARGS)."""
+    with open(os.path.join(_build.CSRC, source)) as f:
+        text = f.read()
+    params = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", text,
+                       re.S).group(1).strip()
+    if re.fullmatch(r"\w+", params):
+        body = re.search(r"#define " + params + r"((?:.*\\\n)*.*)", text)
+        params = body.group(1).replace("\\\n", " ")
+    kinds = []
+    for p in params.split(","):
+        p = " ".join(p.split())
+        kinds.append(ctypes.c_void_p if "*" in p
+                     else ctypes.c_longlong if p.startswith("long long")
+                     else ctypes.c_float if p.startswith("float")
+                     else ctypes.c_int if p.startswith("int") else p)
+    return kinds
+
+
+@pytest.mark.parametrize("source,name", [
+    ("flash_attn_fwd.cu", "flash_attn_fwd"),
+    ("flash_attn_bwd.cu", "flash_attn_bwd_dq"),
+    ("flash_attn_bwd.cu", "flash_attn_bwd_dkv"),
+])
+def test_ctypes_signature_matches_the_c_entry_point(source, name):
+    """ctypes passes what `_ARGTYPES` says: a pointer or stride given as a
+    C int would be cut to 32 bits, and a missing argument shifts every one
+    after it. Held to the parameter list in the source."""
+    assert _ARGTYPES[name] == _c_argtypes(source, name)

@@ -7,6 +7,8 @@ flash_attention_bwd_plain; the CUDA kernels are held against that plain
 version on the card by chip_smoke.py. Tolerance 5e-4 at f32, the
 tests/test_ops.py grad bound."""
 
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +17,10 @@ import torch
 
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash
 from ray_tpu_torch.ops.flash_attention import (
+    _ARGTYPES,
+    _aligned,
     _bwd_cuda,
+    _bwd_prepare,
     dkv_launches,
     dq_launches,
     flash_attention,
@@ -111,13 +116,23 @@ def test_plain_backward_matches_autograd_of_plain_forward(name):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
-def test_cpu_backward_takes_plain_version_and_counts_no_launch():
-    q, k, v, g = (torch.from_numpy(x) for x in inputs(3, B=1, Sq=32, H=2))
+@pytest.mark.parametrize("call", ["direct", "autograd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_backward_takes_plain_version_and_counts_no_launch(dtype, call):
+    """On CPU tensors the backward, called directly or through autograd,
+    is exactly the plain version, and no kernel launch is counted."""
+    q, k, v, g = (torch.from_numpy(x).to(dtype)
+                  for x in inputs(3, B=1, Sq=32, H=4, KVH=2))
     out, lse = flash_attention_plain(q, k, v)
     before = (dq_launches.count, dkv_launches.count)
-    got = flash_attention_bwd(q, k, v, g, out, lse)
-    want = flash_attention_bwd_plain(q, k, v, g, out, lse)
+    if call == "autograd":
+        qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+        got = torch.autograd.grad(flash_attention(qr, kr, vr), (qr, kr, vr),
+                                  g)
+    else:
+        got = flash_attention_bwd(q, k, v, g, out, lse)
     assert (dq_launches.count, dkv_launches.count) == before
+    want = flash_attention_bwd_plain(q, k, v, g, out, lse)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -158,3 +173,65 @@ def test_backward_wrapper_refuses_what_it_cannot_run(D, dtype, lse_shape,
     lse = torch.zeros(lse_shape or (1, 4, 16))
     with pytest.raises(err):
         _bwd_cuda(q, k, k, q, q, lse, True, 1.0, 0, 0)
+
+
+def _bwd_inputs_bf16(B=1, Sq=16, H=4, KVH=2, D=64):
+    q, k, v, g = (torch.from_numpy(x).bfloat16()
+                  for x in inputs(7, B=B, Sq=Sq, H=H, KVH=KVH, D=D))
+    out, lse = flash_attention_plain(q, k, v)
+    return q, k, v, g, out, lse
+
+
+def _out_view(out, view):
+    """`out` as the view `view`: itself, a copy one element off a 16-byte
+    boundary (which the kernels cannot read in place), or a head slice of
+    a wider (B, S, 2H, D) tensor (which they can)."""
+    if view == "base_one_element_off":
+        flat = torch.zeros(out.numel() + 1, dtype=out.dtype)
+        x = flat[1:].view(out.shape)
+    elif view == "head_slice":
+        B, S, H, D = out.shape
+        x = torch.zeros(B, S, 2 * H, D, dtype=out.dtype)[:, :, H:]
+    else:
+        return out
+    x.copy_(out)
+    return x
+
+
+@pytest.mark.parametrize("view", ["contiguous", "base_one_element_off",
+                                  "head_slice"])
+def test_bwd_prepare_hands_the_kernels_out_and_an_f32_delta_buffer(view):
+    """The dq kernel reads O (for Delta) through the C arguments: `out`
+    goes through _kernel_layout like q, k, v and dO, and its pointer and
+    strides sit in the argument list where the C signature takes them.
+    Delta is a fresh (B, H, Sq) f32 buffer for the dq kernel to fill. No
+    kernel runs: _bwd_prepare only checks, lays out and allocates."""
+    q, k, v, g, out, lse = _bwd_inputs_bf16()
+    out_arg = _out_view(out, view)
+    args, grads, keep = _bwd_prepare(q, k, v, g, out_arg, lse, True, 0.125,
+                                     0, 0)
+    assert len(args) + 1 == len(_ARGTYPES["flash_attn_bwd_dq"])
+    assert len(args) + 1 == len(_ARGTYPES["flash_attn_bwd_dkv"])
+    out_k, delta = keep[4], keep[6]
+    assert _aligned(out_k) and torch.equal(out_k, out_arg)
+    assert (out_k is out_arg) == (view != "base_one_element_off")
+    # Pointers: q, k, v, dO, O, lse, Delta, dq, dk, dv; then the dtype
+    # code and 6 sizes; then 3 strides each of q, k, v, dO, O, ...
+    assert args[4] == out_k.data_ptr()
+    assert list(args[29:32]) == list(out_k.stride()[:3])
+    assert args[6] == delta.data_ptr()
+    assert delta.shape == (1, 4, 16) and delta.dtype == torch.float32
+    assert delta.is_contiguous()
+    assert [x.shape for x in grads] == [q.shape, k.shape, v.shape]
+
+
+def test_kernel_path_runs_no_torch_delta_pass(monkeypatch):
+    """Delta is the dq kernel's prologue on the card: preparing the
+    kernels' arguments computes none in torch."""
+    def no_delta(*_a, **_k):
+        raise AssertionError("torch Delta pass on the kernel path")
+
+    monkeypatch.setattr(sys.modules[_bwd_prepare.__module__], "_delta",
+                        no_delta)
+    _bwd_prepare(*_bwd_inputs_bf16(), True, 0.125, 0, 0)
+
