@@ -9,18 +9,18 @@ Phases, each raising on failure:
   2. build: the port's CUDA kernels from the sources in this checkout
      (nvcc, sm_90a), each source timed, with ptxas's register and spill
      report;
-  3. forward kernel vs plain: the attention forward at the serving and
-     training shapes, at D 64, non-causal and ragged, and with rows that
-     see no key (exactly 0), against its plain PyTorch version on the
-     same inputs, with the kernel and one PyTorch library call (SDPA)
-     timed in turns (median and range of each), the plain version's
-     time, and the least time the card could take (its bound);
-  4. backward kernels vs plain: dq and dk/dv at the training shape and
-     at suffix, ragged, fully-masked-row, D 64, non-causal and f32
-     shapes against the plain backward (blind rows' grads exactly 0, two
-     launches bit-identical at the training shape), with each kernel's
-     time, the pair's against SDPA's backward in turns, and the plain
-     backward's;
+  3. forward kernel vs plain: the attention forward at the serving,
+     training and rlhf shapes, at D 64, non-causal and ragged, and with
+     rows that see no key (exactly 0), against its plain PyTorch version
+     on the same inputs, with the kernel and one PyTorch library call
+     (SDPA) timed in turns (median and range of each), the plain
+     version's time, and the least time the card could take (its bound);
+  4. backward kernels vs plain: dq and dk/dv at the training and rlhf
+     shapes and at suffix, ragged, fully-masked-row, D 64, non-causal
+     and f32 shapes against the plain backward (blind rows' grads
+     exactly 0, two launches bit-identical at the training shape), with
+     each kernel's time, the pair's against SDPA's backward in turns,
+     and the plain backward's;
   5. model: Llama-3-8B at full width, 2 layers, forward() logits with the
      kernel against the plain attention;
   6. model grads: llama-654m at full width, 2 layers, bf16, the grads of
@@ -30,7 +30,14 @@ Phases, each raising on failure:
      tokens: the loss falls, and every step launches the forward kernel
      twice per layer (forward and remat's recompute) and dq and dk/dv
      once per layer;
-  8. serve: LLMServer on Llama-3-8B (full width, 32 layers, random bf16
+  8. rlhf: gpt2-125m (full width, 12 layers, tied head, f32 masters,
+     remat) through GRPOLearner and 4 RolloutWorkers, the loop of the JAX
+     package's `bench.py --rlhf` (8 prompts x 4 completions of 16 + 16
+     tokens): a warm-up and 5 timed iterations of rollout -> reward ->
+     update -> refresh, each phase's kernel launches exactly those derived
+     from the code, the first update's log-probs against the captured
+     ones, and engines untouched by an update that no refresh follows;
+  9. serve: LLMServer on Llama-3-8B (full width, 32 layers, random bf16
      weights from a seed), a registered 64-token prefix, 16 concurrent
      requests of 100-1000 tokens, greedy and sampled, some extending the
      prefix; the kernel must have run in full and in suffix prefill.
@@ -40,9 +47,10 @@ status 2 and prints no result.
 
     python3 chip_smoke.py --profile DIR
 
-also profiles one more train step and the serve phase (torch.profiler),
-prints where their device time went by kernel class and the device's
-idle share, and writes DIR/train_profile.txt and DIR/serve_profile.txt.
+also profiles one more train step, one more rlhf iteration and the serve
+phase (torch.profiler), prints where their device time went by kernel
+class and the device's idle share, and writes DIR/train_profile.txt,
+DIR/rlhf_profile.txt and DIR/serve_profile.txt.
 
     python3 chip_smoke.py --serve-ab PARENT
     python3 chip_smoke.py --train-ab PARENT
@@ -59,6 +67,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -105,6 +114,17 @@ LOGITS_REL = 2.0 ** -5
 # carries that difference at ~2^-8 relative; eight bf16 units of
 # roundoff bound the relative L2 difference of each leaf.
 GRAD_REL_L2 = 2.0 ** -5
+# Phase 8, the first GRPO update: the engine captured each sampled token's
+# log-prob from bf16 weights through its own paths (8-row prefill tiles at
+# the 16-token bucket, the queue-side first token, decode over the bf16 KV
+# cache), and the learner recomputes it from the same policy (f32 masters
+# cast to bf16 at each matmul) in one forward over the whole sequence. The
+# two logits differ by bf16 rounding inside the network, bounded as in
+# phase 5 by 2^-5 of the largest |logit|; a log-prob (logit[tok] minus
+# logsumexp) by twice that. The update's k3 KL metric averages
+# e^r - r - 1 over the same log-ratios, recomputed by the same forward,
+# so it is at most e^m - m - 1 at the measured m = max|r| (about m^2/2).
+LOGP_REL = 2.0 ** -4
 
 
 def log(*a):
@@ -251,7 +271,9 @@ def _sdpa_bwd(q, k, v, do, causal, q_offset, kv_offset):
 # see no key (kv_offset 64: the first 64 rows must give exactly 0), the
 # training shape with q, k and v cut by head out of one fused
 # (B, S, H + 2 KVH, D) projection (strided views read in place), and
-# f32.
+# f32. The rlhf phase's shapes (gpt2_125m, D 64, MHA): the learner's 32
+# sequences of 16 + 16 tokens, below one 64-row tile, and rollout prefill's
+# 8-row tile at the 16-token bucket.
 FWD_CASES = [
     ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, True, 0, 0),
     ("fused_qkv", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, True, 0, 0),
@@ -265,6 +287,8 @@ FWD_CASES = [
     ("noncausal_197", 8, 197, 197, 12, 12, 64, torch.bfloat16, False, 0, 0),
     ("masked_rows", 2, 128, 128, 12, 4, 128, torch.bfloat16, True, 0, 64),
     ("f32", 8, 512, 512, 32, 8, 128, torch.float32, True, 0, 0),
+    ("rlhf_learn", 32, 32, 32, 12, 12, 64, torch.bfloat16, True, 0, 0),
+    ("rlhf_prefill", 8, 16, 16, 12, 12, 64, torch.bfloat16, True, 0, 0),
 ]
 
 
@@ -356,7 +380,8 @@ def phase_bwd_kernels() -> dict:
     # the training shape (llama-654m, 8 x 1024 tokens, GQA 12/4), a GQA
     # suffix behind 64 positions, a ragged length, rows that see no key
     # (their grads must be finite: 0), gpt2_125m's head size (D 64, MHA),
-    # a non-causal ragged ViT-B/16 token count (197), and f32.
+    # a non-causal ragged ViT-B/16 token count (197), f32, and the rlhf
+    # phase's learner shape (32 sequences of 32 tokens, below one tile).
     cases = [
         ("train", 8, 1024, 1024, 12, 4, 128, torch.bfloat16, True, 0, 0),
         ("suffix", 2, 512, 576, 12, 4, 128, torch.bfloat16, True, 64, 0),
@@ -367,6 +392,7 @@ def phase_bwd_kernels() -> dict:
         ("noncausal_197", 8, 197, 197, 12, 12, 64, torch.bfloat16, False, 0,
          0),
         ("f32", 4, 512, 512, 12, 4, 128, torch.float32, True, 0, 0),
+        ("rlhf_learn", 32, 32, 32, 12, 12, 64, torch.bfloat16, True, 0, 0),
     ]
     rows = {}
     for name, B, Sq, Skv, H, KVH, D, dt, causal, qo, ko in cases:
@@ -602,6 +628,211 @@ def phase_train(profile_dir: str = "") -> dict:
             f"{total / (report['device_busy_s'] * 1e3):.3f} of its device "
             f"busy time")
     del state, tokens, targets, metrics
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_rlhf(profile_dir: str = "") -> dict:
+    """gpt2-125m at full width and depth (12 layers, tied head, bf16
+    compute over f32 masters, remat) through the port's GRPO modules, in
+    the loop of the JAX package's `bench.py --rlhf`: 4 RolloutWorkers
+    (4 slots, decode blocks of 16, seeds 1000 + i) taking 2 of 8 seeded
+    16-token prompts each, 4 completions of 16 tokens per prompt at
+    temperature 1, reward (completion == 7).mean(), one GRPOLearner
+    (lr 1e-4, warmup 2, 100 total steps), a version-0 refresh, then 1
+    warm-up and 5 timed iterations of rollout -> reward -> update ->
+    refresh. Checks: each phase's launches equal those derived from the
+    code; metrics finite; at the first update the learner's log-probs
+    agree with the captured ones (LOGP_REL); an update that no refresh
+    follows leaves every engine's weights bit-equal; the workers' version
+    equals the number of refreshes after version 0."""
+    from ray_tpu_torch.models import configs
+    from ray_tpu_torch.models.transformer import forward
+    from ray_tpu_torch.ops.flash_attention import (
+        dkv_launches, dq_launches, fwd_launches)
+    from ray_tpu_torch.rlhf import (
+        GRPOLearner, GRPOLearnerConfig, RolloutWorker, learner_inputs)
+    from ray_tpu_torch.rlhf.learner import sequence_logp
+    from ray_tpu_torch.train.step import _leaves
+
+    cfg = configs.gpt2_125m()
+    n_workers, n_prompts, P, G, T, iters = 4, 8, 16, 4, 16, 6
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    learner = GRPOLearner(GRPOLearnerConfig(
+        model=cfg, group_size=G, lr=1e-4, warmup_steps=2, total_steps=100),
+        device="cuda")
+    workers = [RolloutWorker(cfg, num_slots=4, seed=1000 + i,
+                             decode_block=16) for i in range(n_workers)]
+    torch.cuda.synchronize()
+    log(f"[rlhf] gpt2-125m ({cfg.num_params() / 1e6:.0f}M params, "
+        f"{cfg.n_layers} layers): learner and {n_workers} workers up in "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+
+    # Launches of (fwd, dq, dk/dv) each phase makes, from the code. A
+    # worker's rollout submits 8 requests to 4 slots: its first engine
+    # tick prefills 4 in one 8-row tile at the 16-token bucket (L forward
+    # launches) and gives the 4 queued ones their first token from one
+    # cache-free forward (L); decode attends without the kernel; once the
+    # first 4 have their 16 tokens, the queued 4 are prefilled in one more
+    # tile (L). An update runs the forward, remat's recompute of every
+    # layer, and dq and dk/dv once a layer. A refresh launches none (no
+    # registered prefix to recompute).
+    L = cfg.n_layers
+    want = {"rollout": [3 * L * n_workers, 0, 0], "learn": [2 * L, L, L],
+            "refresh": [0, 0, 0]}
+    counters = (fwd_launches, dq_launches, dkv_launches)
+
+    def counted(fn):
+        before = [c.count for c in counters]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t,
+                [c.count - b for c, b in zip(counters, before)])
+
+    def refresh(version):
+        blocks = learner.param_blocks(8)
+        return sum(w.refresh_weights(version, *blocks)["bytes"]
+                   for w in workers)
+
+    def rollout(prompts):
+        per = n_prompts // n_workers
+        outs = [w.rollout(prompts[i * per:(i + 1) * per], group_size=G,
+                          max_new_tokens=T, temperature=1.0)
+                for i, w in enumerate(workers)]
+        out = {k: np.concatenate([o[k] for o in outs])
+               for k in ("seqs", "logprobs", "lengths")}
+        out["prompt_len"] = P
+        return out
+
+    found = {}
+
+    def check(it, seqs, old_logp, comp_mask, when):
+        """Iteration 0, before its update: the learner's log-probs against
+        the captured ones. Iteration 1 (the first update whose lr is not
+        0): every engine's weights across the update, which no refresh
+        follows."""
+        if it == 0 and when == "before":
+            before = fwd_launches.count
+            with torch.no_grad():
+                tok = torch.from_numpy(seqs).cuda().long()
+                logits = forward(cfg, learner.state.params, tok)[0][:, :-1]
+                lp = sequence_logp(cfg, learner.state.params, tok)
+                on = torch.from_numpy(comp_mask > 0).cuda()
+                r = (torch.from_numpy(old_logp).cuda() - lp)[on]
+                found["logp_max_abs_diff"] = r.abs().max().item()
+                found["kl_of_check"] = (torch.exp(r) - r - 1).mean().item()
+                found["max_abs_logit"] = logits[on].abs().max().item()
+            found["check_launches"] = fwd_launches.count - before
+        elif it == 1 and when == "before":
+            found["engines"] = [[t.clone() for t in _leaves(w.engine.params)]
+                                for w in workers]
+            found["master"] = _leaves(learner.state.params)[0].clone()
+        elif it == 1:
+            found["engines_unchanged"] = all(
+                torch.equal(a, b)
+                for w, snap in zip(workers, found.pop("engines"))
+                for a, b in zip(snap, _leaves(w.engine.params)))
+            found["learner_moved"] = not torch.equal(
+                found.pop("master"), _leaves(learner.state.params)[0])
+
+    def iteration(it, rng, check=None):
+        prompts = rng.integers(0, cfg.vocab_size, size=(n_prompts, P),
+                               dtype=np.int64).astype(np.int32)
+        out, roll_s, roll_n = counted(lambda: rollout(prompts))
+        seqs = out["seqs"]
+        if (out["lengths"] != T).any() or (seqs < 0).any() \
+                or (seqs >= cfg.vocab_size).any() \
+                or not np.isfinite(out["logprobs"]).all() \
+                or (out["logprobs"] > 0).any():
+            raise RuntimeError(f"[rlhf] iteration {it}: bad rollout buffers")
+        rewards = (seqs[:, P:] == 7).mean(axis=1)
+        old_logp, comp_mask = learner_inputs(out)
+        if check is not None:
+            check(it, seqs, old_logp, comp_mask, "before")
+        metrics, learn_s, learn_n = counted(lambda: learner.update(
+            seqs, old_logp, rewards, comp_mask))
+        if check is not None:
+            check(it, seqs, old_logp, comp_mask, "after")
+        nbytes, ref_s, ref_n = counted(lambda: refresh(it + 1))
+        toks = int(out["lengths"].sum())
+        return {"iteration": it, "rollout_s": roll_s, "learn_s": learn_s,
+                "refresh_s": ref_s, "iteration_s": roll_s + learn_s + ref_s,
+                "tokens": toks, "tokens_per_s": toks / roll_s,
+                "refresh_bytes": nbytes, **metrics,
+                "launches": {"rollout": roll_n, "learn": learn_n,
+                             "refresh": ref_n}}
+
+    rng = np.random.default_rng(0)
+    for c in counters:                    # main path starts here
+        c.reset()
+    _, v0_s, v0_n = counted(lambda: refresh(0))
+    rows = []
+    for it in range(iters):
+        rows.append(iteration(it, rng, check))
+        log("[rlhf] " + json.dumps(rows[-1]))
+    total = [c.count for c in counters]   # main path ends here
+    by_phase = {k: [sum(x) for x in zip(*(r["launches"][k] for r in rows))]
+                for k in want}
+    by_phase["refresh"] = [a + b for a, b in zip(by_phase["refresh"], v0_n)]
+    path = [sum(x) for x in zip(*by_phase.values())]
+    versions = [w.weight_version() for w in workers]
+    med = {k: float(np.median([r[k] for r in rows[1:]])) for k in (
+        "rollout_s", "learn_s", "refresh_s", "iteration_s", "tokens_per_s",
+        "refresh_bytes", "loss", "pg_loss", "kl", "grad_norm",
+        "reward_mean")}
+    d_bound = LOGP_REL * found["max_abs_logit"]
+    m = found["logp_max_abs_diff"]
+    kl_bound = math.exp(m) - m - 1.0
+    summary = {
+        "median_timed": med,
+        "launches": {c.name: n for c, n in zip(counters, path)},
+        "launches_by_phase": by_phase, "launches_per_iteration": want,
+        "first_update": {"logp_max_abs_diff": found["logp_max_abs_diff"],
+                         "bound": d_bound, "kl": rows[0]["kl"],
+                         "kl_of_check": found["kl_of_check"],
+                         "kl_bound": kl_bound,
+                         "max_abs_logit": found["max_abs_logit"]},
+        "v0_refresh_s": v0_s, "versions": versions,
+        "engines_unchanged_by_update": found["engines_unchanged"],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("[rlhf] " + json.dumps(summary))
+    metrics = [r[k] for r in rows for k in (
+        "loss", "pg_loss", "kl", "grad_norm", "reward_mean")]
+    if not np.isfinite(metrics).all():
+        raise RuntimeError("[rlhf] a metric is not finite")
+    for r in rows:
+        if [r["launches"][k] for k in want] != list(want.values()):
+            raise RuntimeError(f"[rlhf] iteration {r['iteration']}: "
+                               f"launches {r['launches']}, want {want}")
+    if v0_n != want["refresh"] or total != [
+            path[0] + found["check_launches"], path[1], path[2]]:
+        raise RuntimeError(f"[rlhf] launches {total} outside the phases "
+                           f"counted ({by_phase}, check "
+                           f"{found['check_launches']})")
+    if not (found["logp_max_abs_diff"] <= d_bound
+            and rows[0]["kl"] <= kl_bound):
+        raise RuntimeError(f"[rlhf] first update: learner and captured "
+                           f"log-probs disagree: {summary['first_update']}")
+    if not (found["engines_unchanged"] and found["learner_moved"]):
+        raise RuntimeError(f"[rlhf] an update without a refresh: engines "
+                           f"unchanged {found['engines_unchanged']}, learner"
+                           f" moved {found['learner_moved']}")
+    if versions != [iters] * n_workers:
+        raise RuntimeError(f"[rlhf] versions {versions}, want {iters}")
+    if profile_dir:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        t0 = time.perf_counter()
+        with prof:
+            row = iteration(iters, rng)
+        report_profile(prof, time.perf_counter() - t0, profile_dir, "rlhf")
+        log("[rlhf] profiled iteration " + json.dumps(row))
+    del learner, workers
     torch.cuda.empty_cache()
     return summary
 
@@ -859,9 +1090,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", default="",
-                    help="profile one train step and the serve phase with "
-                         "torch.profiler and write their breakdowns to "
-                         "DIR/train_profile.txt and DIR/serve_profile.txt")
+                    help="profile one train step, one rlhf iteration and "
+                         "the serve phase with torch.profiler and write "
+                         "their breakdowns to DIR/<phase>_profile.txt")
     for phase in ("serve", "train"):
         ap.add_argument(f"--{phase}-ab", metavar="PARENT", default="",
                         help=f"run only the {phase} phase, in the checkout "
@@ -883,42 +1114,60 @@ def main() -> int:
     phase_model()
     phase_model_grads()
     train = phase_train(profile_dir)
+    rlhf = phase_rlhf(profile_dir)
     serve = phase_serve(fwd_launches, profile_dir)
     fwd = rows["prefill_1024"]            # the largest bucket served
     tb = bwd["train"]                     # the training shape
+    rb = bwd["rlhf_learn"]                # the rlhf learner's shape
     src = "ray_tpu_torch/ops/csrc/"
     ref = "ray_tpu/ops/flash_attention.py:"
     # Each path's launches were counted from 0 just before it ran: the
-    # serve phase's for the forward, the train phase's for all three.
-    fwd_by_path = {"serve": serve["kernel_launches"],
-                   "train": train["launches"]["flash_attn_fwd"]}
+    # serve phase's for the forward, the train and rlhf phases' for all
+    # three.
+    by_path = {name: {"train": train["launches"][name],
+                      "rlhf": rlhf["launches"][name]}
+               for name in train["launches"]}
+    by_path["flash_attn_fwd"]["serve"] = serve["kernel_launches"]
+    fwd_keys = ("ms", "ms_range", "library_ms", "library_ms_range",
+                "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    bwd_keys = ("pair_ms", "pair_ms_range", "library_ms",
+                "library_ms_range", "plain_ms")
     kernels = {"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda",
          "source": src + "flash_attn_fwd.cu", "replaces": ref + "55",
-         "launches": sum(fwd_by_path.values()),
-         "launches_by_path": fwd_by_path,
+         "launches": sum(by_path["flash_attn_fwd"].values()),
+         "launches_by_path": by_path["flash_attn_fwd"],
          "max_abs_err": fwd["max_abs_err"], "ms": fwd["ms"],
          "ms_range": fwd["ms_range"], "plain_ms": fwd["plain_ms"],
          "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
          "library_ms": fwd["library_ms"],
          "library_ms_range": fwd["library_ms_range"],
-         "train_shape": {k: rows["train"][k] for k in (
-             "ms", "ms_range", "library_ms", "library_ms_range",
-             "bound_ms", "tflops")}},
+         **{f"{case}_shape": {k: rows[case][k] for k in fwd_keys + (
+             "tflops",)} for case in ("train", "rlhf_learn",
+                                      "rlhf_prefill")}},
         {"name": "flash_attn_bwd_dq", "route": "cuda",
          "source": src + "flash_attn_bwd.cu", "replaces": ref + "168",
-         "launches": train["launches"]["flash_attn_bwd_dq"],
+         "launches": sum(by_path["flash_attn_bwd_dq"].values()),
+         "launches_by_path": by_path["flash_attn_bwd_dq"],
          "max_abs_err": tb["err"]["dq"], "ms": tb["dq_ms"],
          "plain_ms": tb["plain_ms"], **tb["dq"],
          "library_ms": tb["library_ms"],
-         "library_ms_range": tb["library_ms_range"]},
+         "library_ms_range": tb["library_ms_range"],
+         "rlhf_learn_shape": {"ms": rb["dq_ms"], **rb["dq"],
+                              "max_abs_err": rb["err"]["dq"],
+                              **{k: rb[k] for k in bwd_keys}}},
         {"name": "flash_attn_bwd_dkv", "route": "cuda",
          "source": src + "flash_attn_bwd.cu", "replaces": ref + "219",
-         "launches": train["launches"]["flash_attn_bwd_dkv"],
+         "launches": sum(by_path["flash_attn_bwd_dkv"].values()),
+         "launches_by_path": by_path["flash_attn_bwd_dkv"],
          "max_abs_err": max(tb["err"]["dk"], tb["err"]["dv"]),
          "ms": tb["dkv_ms"], "plain_ms": tb["plain_ms"], **tb["dkv"],
          "library_ms": tb["library_ms"],
-         "library_ms_range": tb["library_ms_range"]}]}
+         "library_ms_range": tb["library_ms_range"],
+         "rlhf_learn_shape": {"ms": rb["dkv_ms"], **rb["dkv"],
+                              "max_abs_err": max(rb["err"]["dk"],
+                                                 rb["err"]["dv"]),
+                              **{k: rb[k] for k in bwd_keys}}}]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(env["card"])
     print(json.dumps(kernels), flush=True)

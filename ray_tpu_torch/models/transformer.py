@@ -127,6 +127,22 @@ def params_to(params: Params, device: torch.device) -> Params:
             for k, v in params.items()}
 
 
+def serving_params(cfg: TransformerConfig, params: Params,
+                   device: torch.device) -> Params:
+    """A copy of every leaf (a tensor or anything torch.as_tensor takes)
+    on `device` in the serving storage, never the tensor given, so the
+    holder owns it: f32 master weights are cast once here, where the JAX
+    package keeps them and casts at each use (the same values: every
+    matmul casts its weight to cfg.dtype)."""
+    def copy(name, w):
+        return torch.as_tensor(w).to(device=device,
+                                     dtype=storage_dtype(cfg, name),
+                                     copy=True)
+    return {k: ({n: copy(n, w) for n, w in v.items()}
+                if isinstance(v, dict) else copy(k, v))
+            for k, v in params.items()}
+
+
 def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {k: w[i] for k, w in params["layers"].items()}
 

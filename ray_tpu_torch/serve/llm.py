@@ -53,7 +53,7 @@ from ..models.generate import (
     sample,
     token_logp,
 )
-from ..models.transformer import init_params, params_to
+from ..models.transformer import init_params, serving_params
 
 log = logging.getLogger("ray_tpu_torch.serve")
 
@@ -194,7 +194,13 @@ class _Slot:
 class LLMEngine:
     """Host-side continuous-batching loop over the prefill/decode steps.
     Thread-safe submit; `step()` is driven by `run_forever()` (background
-    thread) or manually (tests)."""
+    thread) or manually (tests).
+
+    The engine serves its own copy of the weights it is given, in the
+    serving storage (transformer.serving_params), at construction and at
+    `set_params` alike: a caller that goes on updating its tensors in
+    place, as a learner does its master weights, does not change the
+    policy served."""
 
     _ADMIT_TILE = 8  # fixed batch tile of every admission dispatch
 
@@ -212,7 +218,7 @@ class LLMEngine:
         self.max_seq_len = max_seq_len or cfg.max_seq_len
         self.top_k = top_k
         self.capture_logprobs = bool(capture_logprobs)
-        self.params = params_to(params, self.device)
+        self.params = serving_params(cfg, params, self.device)
         # Upper bound on ticks fused per decode dispatch; the block size
         # adapts each step to the smallest remaining budget.
         self.decode_block = max(1, decode_block)
@@ -370,8 +376,10 @@ class LLMEngine:
 
     def set_params(self, params: Any) -> None:
         """Swap in new weights, then recompute every registered prefix
-        (their KV was built under the old weights)."""
-        params = params_to(params, self.device)
+        (their KV was built under the old weights). Installed as in the
+        constructor: the engine's own copy of each leaf in the serving
+        storage."""
+        params = serving_params(self.cfg, params, self.device)
         with self.lock:
             self.params = params
             keys = list(self._prefixes)
